@@ -1,0 +1,390 @@
+"""Batched uniform partitioned overlap-save convolution (PyTorch).
+
+Port of airwave_tpu/ops/upols.py. One step convolves a whole batch of
+streams, every virtual speaker and both ears at once:
+
+    state:  fdl [Kp, S, P2, 2, B] f32     delay line of HALF-window analysis
+                                          spectra u_t = W1 @ b_t (re/im
+                                          planes, batch minor)
+            write_pos int                 circular write cursor (host int)
+    params: Gflip2 [S, E, 2*P2, K, 2]     half-window filter bank per ear,
+                                          partition-flipped and doubled so
+                                          the per-block rotation is a slice
+
+The overlap-save window [b_{t-1}, b_t] satisfies X_t = u_{t-1} + s ⊙ u_t
+with s_k = (-1)^k, so the UPOLS sum over full-window spectra collapses onto
+the u history against G_q = H_{q-1} + s⊙H_q (_half_window_bank): the
+analysis contracts T samples instead of 2T and no overlap block is carried.
+The delay line is written in place, one slot per block, and the filter bank
+is rotated instead of the line.
+
+The carry layouts are the reference's, so states move between the two
+packages unchanged (interop.py). Unlike the reference, the steps update the
+single-block delay line IN PLACE: the state passed to conv_step is consumed.
+
+Everything derived from the params alone (the MAC's filter operands, the
+padded and folded synthesis weights) is built by single_block_bank,
+paged_bank and project_weights; callers that step many times build those
+once and pass them in, since eager PyTorch does not hoist loop invariants.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from airwave_tpu_torch.kernels.mac_kmajor import mac_kmajor
+from airwave_tpu_torch.ops import fftmm
+
+
+class ConvParams(NamedTuple):
+    # Gflip2[..., j, :, :] with j in [start, start+P2) yields
+    # G[(write_pos - j) % P2]; float planes with a trailing (re, im) axis.
+    Gflip2: torch.Tensor  # [S, E, 2*P2, K, 2] float32
+    wf: torch.Tensor      # [T, K, 2] half-window analysis weights
+    wi: torch.Tensor      # [K, 2, T] second-half synthesis weights
+
+    @property
+    def num_speakers(self) -> int:
+        return self.Gflip2.shape[-5]
+
+    @property
+    def num_ears(self) -> int:
+        return self.Gflip2.shape[-4]
+
+    @property
+    def partition_count(self) -> int:
+        return self.Gflip2.shape[-3] // 2
+
+    @property
+    def num_bins(self) -> int:
+        return self.Gflip2.shape[-2]
+
+
+class ConvState(NamedTuple):
+    fdl: torch.Tensor  # [Kp, S, P2, 2, B] float32, batch minor
+    write_pos: int
+
+
+class PagedConvState(NamedTuple):
+    """Delay line as P2/M pages of M slots each (pages[0] newest). Rotation
+    is tuple renaming and the new page is the analysis product itself, so
+    the line is never copied or rewritten. Slots hold half-window spectra,
+    so the pages are the whole convolution state."""
+
+    pages: tuple  # each [Kp, S, 2, M, B] float32, newest first
+
+
+def _half_window_bank(H: np.ndarray) -> np.ndarray:
+    """Fold the overlap-save window recombination into the filter bank:
+
+        sum_{p=0}^{P-1} H_p X_{t-p} = sum_{q=0}^{P} G_q u_{t-q},
+        G_0 = s⊙H_0,   G_q = H_{q-1} + s⊙H_q,   G_P = H_{P-1}.
+
+    H: [S, E, P, K] complex -> [S, E, P+1, K], in f64."""
+    K = H.shape[-1]
+    s = ((-1.0) ** np.arange(K))[None, None, None, :]
+    z = np.zeros_like(H[:, :, :1])
+    return np.concatenate([z, H], axis=2) + s * np.concatenate([H, z], axis=2)
+
+
+def make_conv_params(hrir: np.ndarray, block_size: int,
+                     pad_to_pow2: bool = True,
+                     lookahead: int = 1,
+                     partitions: "int | None" = None,
+                     device: "torch.device | str" = "cpu") -> ConvParams:
+    """Build ConvParams from time-domain HRIRs [S, E, L].
+
+    A P-partition HRIR yields P+1 half-window coefficients. pad_to_pow2
+    buckets the real partition count to a power of two (shape stability
+    across preset swaps); lookahead=M adds M-1 zero tail partitions and
+    rounds up to whole pages for conv_step_paged; partitions=N forces the
+    stored count (it must cover the bank and, with lookahead, divide by M)."""
+    hrir = np.asarray(hrir, np.float32)
+    length = hrir.shape[-1]
+    real_p = max(1, math.ceil(length / block_size))
+    lead = hrir.shape[:-1]
+    padded = np.zeros(lead + (real_p * block_size,), np.float64)
+    padded[..., :length] = hrir
+    parts = padded.reshape(lead + (real_p, block_size))
+    parts = np.concatenate([parts, np.zeros_like(parts)], axis=-1)
+    H = np.fft.rfft(parts, axis=-1)            # [S, E, P, K] complex128
+    G = _half_window_bank(H)                   # [S, E, P+1, K]
+    base = G.shape[2]
+    need = base
+    if lookahead > 1:
+        if pad_to_pow2:
+            need = (1 << (real_p - 1).bit_length()) + 1
+        need += lookahead - 1
+        need += (-need) % lookahead
+    elif pad_to_pow2:
+        need = (1 << (real_p - 1).bit_length()) + 1
+    if partitions is not None:
+        partitions = int(partitions)
+        if partitions < need:
+            raise ValueError(
+                f"partitions={partitions} cannot hold this HRIR: needs "
+                f">= {need} (length {length} at block {block_size}, "
+                f"lookahead {lookahead}; half-window bank = partitions + 1)"
+            )
+        if lookahead > 1 and partitions % lookahead:
+            raise ValueError(
+                f"partitions={partitions} is not divisible by "
+                f"lookahead={lookahead}"
+            )
+        need = partitions
+    if need > base:
+        G = np.concatenate(
+            [G, np.zeros(G.shape[:2] + (need - base,) + G.shape[3:],
+                         G.dtype)],
+            axis=2,
+        )
+    Gflip = G[:, :, ::-1, :]
+    Gflip2 = np.concatenate([Gflip, Gflip], axis=2)  # [S, E, 2*P2, K]
+    planes = np.stack([Gflip2.real, Gflip2.imag], axis=-1).astype(np.float32)
+    n = 2 * block_size
+    return ConvParams(
+        Gflip2=torch.tensor(planes, device=device),
+        wf=fftmm.rfft_weights_half(n, device),
+        wi=fftmm.irfft_weights(n, block_size, block_size, device),
+    )
+
+
+def padded_bin_count(block_size: int) -> int:
+    """Delay-line bin rows: K = block+1 padded up to a multiple of 8. Pad
+    rows hold zeros against zero filter weights and contribute nothing."""
+    k = block_size + 1
+    return k + (-k) % 8
+
+
+def make_conv_state(batch: int, num_speakers: int, partition_count: int,
+                    block_size: int,
+                    device: "torch.device | str" = "cpu") -> ConvState:
+    return ConvState(
+        fdl=torch.zeros((padded_bin_count(block_size), num_speakers,
+                         partition_count, 2, batch), device=device),
+        write_pos=0,
+    )
+
+
+def make_conv_state_paged(batch: int, num_speakers: int, partition_count: int,
+                          block_size: int, lookahead: int,
+                          device: "torch.device | str" = "cpu"
+                          ) -> PagedConvState:
+    if partition_count % lookahead:
+        raise ValueError(f"partition_count={partition_count} is not "
+                         f"divisible by lookahead={lookahead}")
+    shape = (padded_bin_count(block_size), num_speakers, 2, lookahead, batch)
+    return PagedConvState(
+        pages=tuple(torch.zeros(shape, device=device)
+                    for _ in range(partition_count // lookahead)),
+    )
+
+
+def conv_reset(state: ConvState,
+               stream_mask: "torch.Tensor | None" = None) -> ConvState:
+    """Zero conv history; with a [B] bool mask only the masked streams."""
+    if stream_mask is None:
+        return ConvState(fdl=torch.zeros_like(state.fdl), write_pos=0)
+    m = stream_mask.to(torch.bool)
+    return ConvState(fdl=state.fdl.masked_fill(m, 0.0),
+                     write_pos=state.write_pos)
+
+
+def conv_reset_paged(state: PagedConvState,
+                     stream_mask: "torch.Tensor | None" = None
+                     ) -> PagedConvState:
+    """Zero paged conv history; with a [B] bool mask only the masked
+    streams (a zeroed lane is rotation-invariant)."""
+    if stream_mask is None:
+        return PagedConvState(
+            pages=tuple(torch.zeros_like(pg) for pg in state.pages))
+    m = stream_mask.to(torch.bool)
+    return PagedConvState(
+        pages=tuple(pg.masked_fill(m, 0.0) for pg in state.pages))
+
+
+# --- Filter operands (params-derived, built once per bank) ------------------
+
+
+def _complex_block(h: torch.Tensor, k_padded: int) -> torch.Tensor:
+    """Bank planes [..., K, 2] -> [..., Kp, C, Q]: the real 2x2 form of the
+    complex product, (re, im)_q = sum_c f_c * h2[c, q], with zero pad bins."""
+    hre, him = h[..., 0], h[..., 1]
+    h2 = torch.stack(
+        [torch.stack([hre, him], dim=-1), torch.stack([-him, hre], dim=-1)],
+        dim=-2,
+    )
+    return F.pad(h2, (0, 0, 0, 0, 0, k_padded - h.shape[-2]))
+
+
+def single_block_bank(params: ConvParams, k_padded: int) -> torch.Tensor:
+    """The single-block MAC operand for every rotation: [Kp, E*Q, S, 2*P2, C].
+
+    Rotation w is _rotated_operand(bank, w): a slice of the doubled
+    partition axis, flattened to the kernel's h [Kp, O=(E,Q), R=(S,P,C)]."""
+    h2 = _complex_block(params.Gflip2, k_padded)   # [S, E, 2P2, Kp, C, Q]
+    S, E, P, Kp, C, Q = h2.shape
+    return h2.permute(3, 1, 5, 0, 2, 4).reshape(Kp, E * Q, S, P, C)
+
+
+def _rotated_operand(bank: torch.Tensor, write_pos: int) -> torch.Tensor:
+    """Filter operand of the block at cursor w: slot j multiplies the block
+    from (w - j) blocks ago, G[(w - j) % P2] = Gflip2[(P2 - 1 - w) + j]."""
+    Kp, O, S, P, C = bank.shape
+    P2 = P // 2
+    return bank.narrow(3, P2 - 1 - write_pos, P2).reshape(Kp, O, S * P2 * C)
+
+
+def paged_bank(params: ConvParams, lookahead: int,
+               k_padded: int) -> torch.Tensor:
+    """Per-page MAC operands of the paged step, [n_pages, Kp, O, R] with
+    O = (m, e, q) = M*E*2 output columns and R = (s, c, j) = S*2*M rows.
+
+    Page a, in-page slot j holds block t+M-1-j-a*M, so output m's
+    coefficient against it is Hz[m+j+a*M] with Hz the natural-order bank
+    behind M-1 zero partitions."""
+    M = lookahead
+    P2 = params.partition_count
+    h_nat = params.Gflip2[:, :, :P2].flip(2)               # [S, E, P2, K, 2]
+    h2 = _complex_block(h_nat, k_padded)                   # [S, E, P2, Kp, C, Q]
+    h2 = F.pad(h2, (0, 0, 0, 0, 0, 0, M - 1, 0))           # M-1 zero partitions
+    hz = h2.permute(3, 0, 4, 2, 1, 5)                      # [Kp, S, C, P2+M-1, E, Q]
+    Kp, S, C, _, E, Q = hz.shape
+    pages = []
+    for a in range(P2 // M):
+        g_a = torch.stack(
+            [hz[:, :, :, m + a * M: m + a * M + M] for m in range(M)], dim=4,
+        )  # [Kp, S, C, M(j), M(m), E, Q]
+        pages.append(g_a.permute(0, 4, 5, 6, 1, 2, 3)
+                     .reshape(Kp, M * E * Q, S * C * M))
+    return torch.stack(pages)
+
+
+def project_weights(params: ConvParams, k_padded: int,
+                    post: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Synthesis weights as the left operand [X, Q*Kp] of one matmul over
+    the MAC output's (plane, bin) rows. A `post` matrix [T, X] is folded in
+    (einsum(wi, post)), so an irfft-then-matmul chain is one product and the
+    time-domain intermediate never exists."""
+    w = params.wi                                           # [K, Q, T]
+    if post is not None:
+        w = torch.einsum("kqt,tx->kqx", w, post)
+    w = F.pad(w, (0, 0, 0, 0, 0, k_padded - w.shape[0]))    # [Kp, Q, X]
+    return w.permute(2, 1, 0).reshape(w.shape[2], -1).contiguous()
+
+
+# --- Single-block step --------------------------------------------------------
+
+
+def _to_slot(X_planes: torch.Tensor, k_padded: int) -> torch.Tensor:
+    """Analysis spectra [B, S, K, 2] -> one delay-line slot [Kp, S, 1, 2, B]."""
+    X_km = X_planes.permute(2, 1, 3, 0)  # [K, S, 2, B]
+    X_km = F.pad(X_km, (0, 0, 0, 0, 0, 0, 0, k_padded - X_km.shape[0]))
+    return X_km.unsqueeze(2)
+
+
+def _mac_irfft(fdl: torch.Tensor, h: torch.Tensor,
+               synth: torch.Tensor) -> torch.Tensor:
+    """Delay-line MAC + second-half inverse DFT:
+    fdl [Kp, S, P, C, B], h [Kp, E*Q, S*P*C], synth [T, Q*Kp] -> y [B, E, T].
+
+    The MAC is the mac_kmajor kernel (its plain version on CPU tensors);
+    its [E*Q, Kp, B] output is the synthesis matmul's right operand as it
+    lies, and y is returned as a [B, E, T] view of the [E, T, B] product."""
+    Kp, S, P, C, B = fdl.shape
+    Y = mac_kmajor(fdl.view(Kp, S * P * C, B), h)       # [E*Q, Kp, B]
+    E = h.shape[1] // 2
+    y = torch.matmul(synth, Y.view(E, 2 * Kp, B))       # [E, T, B]
+    return y.permute(2, 0, 1)
+
+
+def conv_step(params: ConvParams, state: ConvState, x: torch.Tensor,
+              bank: "torch.Tensor | None" = None,
+              synth: "torch.Tensor | None" = None):
+    """One overlap-save block: x [B, S, T] float32 -> (state', y [B, E, T]).
+
+    y[b, e] = sum_s conv(x_s, H[s, e]). The slot written is the
+    half-window spectrum of the new block alone, in place in state.fdl.
+    `bank` (single_block_bank) and `synth` (project_weights) may be passed
+    in so a stepping loop builds them once."""
+    Kp, S, P2 = state.fdl.shape[:3]
+    w = int(state.write_pos)
+    if bank is None:
+        bank = single_block_bank(params, Kp)
+    if synth is None:
+        synth = project_weights(params, Kp)
+
+    u = fftmm.rfft_mm(x, params.wf)                      # [B, S, K, 2]
+    state.fdl.narrow(2, w, 1).copy_(_to_slot(u, Kp))
+    y = _mac_irfft(state.fdl, _rotated_operand(bank, w), synth)
+    return ConvState(fdl=state.fdl, write_pos=(w + 1) % P2), y
+
+
+# --- M-block lookahead step (paged delay line) ------------------------------
+
+
+def conv_step_paged_raw(params: ConvParams, state: PagedConvState,
+                        x: torch.Tensor, bank: "torch.Tensor | None" = None):
+    """Analysis + MAC of the M-block lookahead step, stopping before the
+    synthesis transform: x [B, S, M, T] -> (state', Ykm [M, E, Q, Kp, B]).
+
+    Ykm is the frequency-domain mix in the kernel's output layout (rows
+    (m, e, q), then bin, then batch); paged_project consumes it as it lies.
+    `bank` is paged_bank(params, M, Kp), built once by stepping loops."""
+    B, S, M, T = x.shape
+    Kp = state.pages[0].shape[0]
+    K = params.wf.shape[1]
+    if bank is None:
+        bank = paged_bank(params, M, Kp)
+
+    # Half-window analysis, newest block first: slot j holds block M-1-j.
+    xt = x.flip(2).permute(3, 1, 2, 0).reshape(T, S * M * B)    # [t, (s,j,b)]
+    u = torch.mm(params.wf.reshape(T, K * 2).t(), xt)            # [(k,c), (s,j,b)]
+    new_page = F.pad(u.view(K, 2, S, M, B).transpose(1, 2),
+                     (0, 0, 0, 0, 0, 0, 0, 0, 0, Kp - K))        # [Kp, S, C, M, B]
+    pages = (new_page,) + tuple(state.pages[:-1])
+    return PagedConvState(pages=pages), _paged_mac(pages, bank, M)
+
+
+def _paged_mac(pages, bank: torch.Tensor, M: int) -> torch.Tensor:
+    """Multiply-accumulate every page against its filter window (bank
+    [n_pages, Kp, O, R]): one kernel launch per page into one [O, Kp, B]
+    accumulator (O = M*E*Q)."""
+    Kp, S, C, _, B = pages[0].shape
+    acc = None
+    for page, h in zip(pages, bank):
+        fdl = page.view(Kp, S * C * M, B)
+        if acc is None:
+            acc = mac_kmajor(fdl, h)
+        else:
+            mac_kmajor(fdl, h, out=acc, accumulate=True)
+    O = acc.shape[0]
+    return acc.view(M, O // (2 * M), 2, Kp, B)
+
+
+def paged_project(params: ConvParams, Ykm: torch.Tensor,
+                  post: "torch.Tensor | None" = None,
+                  synth: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Second-half inverse DFT of the paged MAC output:
+    Ykm [M, E, Q, Kp, B] -> y [B, M, E, X] (a view of an [M, E, X, B]
+    product). With post=None X = T; a `post` matrix [T, X] is folded into
+    the weights (project_weights). `synth` passes those weights in."""
+    M, E, Q, Kp, B = Ykm.shape
+    if synth is None:
+        synth = project_weights(params, Kp, post)
+    y = torch.matmul(synth, Ykm.reshape(M * E, Q * Kp, B))     # [M*E, X, B]
+    return y.view(M, E, -1, B).permute(3, 0, 1, 2)
+
+
+def conv_step_paged(params: ConvParams, state: PagedConvState,
+                    x: torch.Tensor, bank: "torch.Tensor | None" = None,
+                    synth: "torch.Tensor | None" = None):
+    """M-block lookahead step: x [B, S, M, T] -> (state', y [B, M, E, T]),
+    conv_step_paged_raw then paged_project."""
+    new_state, Ykm = conv_step_paged_raw(params, state, x, bank)
+    return new_state, paged_project(params, Ykm, synth=synth)

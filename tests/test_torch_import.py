@@ -1,0 +1,147 @@
+"""The PyTorch port imports no jax, and chip_smoke.py refuses to run without
+a CUDA card.
+
+Each check runs in a fresh interpreter: after a failed `import
+airwave_tpu.ops` the half-initialised airwave_tpu.ops.biquad_design stays
+in sys.modules, so a later import of a jax-bound module in the same process
+would appear to work.
+"""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+BLOCK_JAX = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class _NoJax(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+                raise ImportError(f"jax is blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, _NoJax())
+""")
+
+
+def _run(code: str, cwd=REPO, timeout=120) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_imports_and_bakes_with_jax_blocked():
+    code = BLOCK_JAX + textwrap.dedent("""
+        import importlib, pkgutil
+        import numpy as np
+        import airwave_tpu_torch
+
+        names = [m.name for m in pkgutil.walk_packages(
+            airwave_tpu_torch.__path__, "airwave_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+
+        from airwave_tpu_torch.models.bake import bake
+        rng = np.random.default_rng(0)
+        hrir = (rng.standard_normal((2, 2, 100)) * 0.3).astype(np.float32)
+        x = (rng.standard_normal((2, 2, 200)) * 0.4).astype(np.float32)
+        for m in (1, 2):
+            y, _ = bake(hrir, x, 48_000.0, block_size=64, blocks_per_step=m)
+            assert y.shape == (2, 2, 200) and np.isfinite(y).all()
+        assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+        print("modules", len(names))
+    """)
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "modules" in proc.stdout
+
+
+def test_jax_block_is_effective():
+    """The blocker really blocks: the JAX package's ops cannot be imported
+    under it (the trap that made the port carry its own biquad_design)."""
+    proc = _run(BLOCK_JAX + "import airwave_tpu.ops.biquad_design\n")
+    assert proc.returncode != 0
+    assert "jax is blocked" in proc.stderr
+
+
+def test_chip_smoke_names_no_jax_module():
+    """chip_smoke.py imports torch, numpy, scipy and the port only: no jax
+    and no module of the JAX package `airwave_tpu`."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert "airwave_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "airwave_tpu"}, sorted(names)
+
+
+def _assert_smoke_refused(proc: subprocess.CompletedProcess) -> None:
+    assert proc.returncode != 0, proc.stdout
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run")
+    # Run with jax blocked: reaching the CUDA check shows that all of the
+    # script's imports load without jax.
+    proc = _run(BLOCK_JAX + textwrap.dedent("""
+        import runpy
+        sys.argv = ["chip_smoke.py"]
+        runpy.run_path("chip_smoke.py", run_name="__main__")
+    """))
+    _assert_smoke_refused(proc)
+    assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo
+    it cannot import the port and exits non-zero."""
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=120)
+    _assert_smoke_refused(proc)
+
+
+def test_resolve_device_never_falls_back():
+    from airwave_tpu_torch.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="is_available"):
+        resolve_device("cuda")
+
+
+def test_precision_policy_is_strict_fp32():
+    from airwave_tpu_torch.device import apply_precision_policy, precision_is_strict
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        assert not precision_is_strict()
+        apply_precision_policy()
+        assert precision_is_strict()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        torch.set_float32_matmul_precision(saved[2])
