@@ -13,7 +13,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from airwave_tpu_torch.device import apply_precision_policy, resolve_device
+from airwave_tpu_torch.device import (DEFAULT_DEVICE, apply_precision_policy,
+                                      resolve_device)
 from airwave_tpu_torch.models.binaural import BinauralChain, ChainState
 from airwave_tpu_torch.ops import eq_block, upols
 
@@ -28,13 +29,16 @@ def bake(
     state: Optional[ChainState] = None,
     pad_to_pow2: bool = False,
     blocks_per_step: int = 1,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str" = DEFAULT_DEVICE,
 ) -> Tuple[np.ndarray, ChainState]:
-    """Render [B, S, n] through HRIRs [S, 2, L] (+ optional EQ) on `device`.
+    """Render [B, S, n] through HRIRs [S, 2, L] (+ optional EQ) on `device`
+    (the card by default; pass device="cpu" for the CPU).
 
     Returns (y [B, 2, n] float32 numpy, final ChainState on the device); the
-    state seeds a continuation bake. A `state` passed in is left as it was,
-    so it may seed another bake (for example a retry).
+    state seeds a continuation bake. The single-block step writes the delay
+    line in place (upols.conv_step), so bake copies a passed-in `state`
+    once before stepping: the caller's state is left as it was and may seed
+    another bake (for example a retry). The paged step is functional.
 
     blocks_per_step=M > 1 renders M blocks per delay-line read (the paged
     lookahead path) with the same output to f32 tolerance. A continuation

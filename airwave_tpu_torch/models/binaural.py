@@ -68,9 +68,10 @@ def chain_step_fn(
     With spatial disabled, stereo input passes through and mono is
     duplicated.
 
-    The spatial stage writes state.conv's delay line in place
-    (upols.conv_step), so the state passed in is consumed: reuse only the
-    returned state, or pass in a clone of the delay line."""
+    The spatial stage writes state.conv's delay line IN PLACE
+    (upols.conv_step), unlike the functional reference: the state passed in
+    is consumed, and the returned state holds the same fdl tensor. Reuse
+    only the returned state, or pass in a clone of the delay line."""
     conv_state, eq_state = state
     if spatial_enabled:
         bank, synth = (operands.bank, operands.synth) if operands else (None, None)

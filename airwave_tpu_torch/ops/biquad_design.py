@@ -1,8 +1,7 @@
 """Biquad coefficient design (host-side, float64) and block state-space lowering.
 
-A numpy port of airwave_tpu/ops/biquad_design.py. It is a port and not an
-import because `airwave_tpu.ops/__init__.py` imports the jax-bound ops, so
-importing the reference module pulls in jax. The arithmetic is the
+A numpy port of airwave_tpu/ops/biquad_design.py (the port imports no
+module of the JAX package). The arithmetic is the
 reference's operation for operation, so every matrix it builds is bit-for-bit
 the reference's.
 
@@ -24,10 +23,10 @@ from typing import List, Sequence
 
 import numpy as np
 
-# The EQ definition types are re-exported, so callers of the port take them
-# from here and name no module of the JAX package.
-from airwave_tpu.io.apo import EqualizerDefinition, EqualizerFilter, FilterType
-from airwave_tpu.utils import errors
+# The EQ definition types are re-exported, so callers of the port may take
+# them from here.
+from airwave_tpu_torch.io.apo import EqualizerDefinition, EqualizerFilter, FilterType
+from airwave_tpu_torch.utils import errors
 
 
 @dataclasses.dataclass(frozen=True)

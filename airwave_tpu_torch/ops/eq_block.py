@@ -20,6 +20,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from airwave_tpu_torch.ops import biquad_design as bd
 from airwave_tpu_torch.ops import upols
 
@@ -47,7 +48,7 @@ def make_eq_params(
     block_size: int,
     state_dim: int = 128,
     dtype: torch.dtype = torch.float32,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str" = DEFAULT_DEVICE,
 ) -> EqParams:
     ssm = bd.block_ssm(coefficients, preamp_linear, block_size, state_dim)
     T = block_size
@@ -55,6 +56,7 @@ def make_eq_params(
     for t in range(T):
         toeplitz[t, : t + 1] = ssm.h[t::-1]
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    device = resolve_device(device)
 
     def tensor(a):
         return torch.tensor(np.asarray(a, np_dtype), device=device)
@@ -64,13 +66,14 @@ def make_eq_params(
 
 
 def unity_eq_params(block_size: int, state_dim: int = 128,
-                    device: "torch.device | str" = "cpu") -> EqParams:
+                    device: "torch.device | str" = DEFAULT_DEVICE) -> EqParams:
     """The unity state: no filters, preamp 1."""
     return make_eq_params([], 1.0, block_size, state_dim, device=device)
 
 
 def make_eq_state(batch: int, channels: int = 2, state_dim: int = 128,
-                  device: "torch.device | str" = "cpu") -> EqState:
+                  device: "torch.device | str" = DEFAULT_DEVICE) -> EqState:
+    device = resolve_device(device)
     return EqState(
         s_from=torch.zeros((batch, channels, state_dim), device=device),
         s_to=torch.zeros((batch, channels, state_dim), device=device),
@@ -153,16 +156,20 @@ def fold_post(eq_to: EqParams) -> torch.Tensor:
 def eq_folded_paged_round(conv_params, eq_to: EqParams, conv_state,
                           eq_state: EqState, x: torch.Tensor,
                           bank: "torch.Tensor | None" = None,
-                          synth: "torch.Tensor | None" = None):
+                          synth: "torch.Tensor | None" = None,
+                          active_mask: "torch.Tensor | None" = None):
     """One steady-state M-block round with the EQ folded into the synthesis
     DFT: x [B, S, M, T] -> (conv_state', eq_state', y [B, M, C, T]).
 
     conv_step_paged_raw -> ONE paged_project pass over the [Hm^T | G^T]
     post-matrix (Ykm is read once) -> fir/drive split -> eq_apply_folded.
     `bank` (upols.paged_bank) and `synth` (upols.project_weights with
-    post=fold_post(eq_to)) may be passed in by stepping loops."""
+    post=fold_post(eq_to)) may be passed in by stepping loops. active_mask
+    is the serving pool's idle-lane preservation
+    (upols.conv_step_paged_raw); the EQ state of idle lanes is the
+    caller's to restore."""
     conv_state, Ykm = upols.conv_step_paged_raw(conv_params, conv_state, x,
-                                                bank)
+                                                bank, active_mask)
     T = x.shape[-1]
     if synth is None:
         synth = upols.project_weights(conv_params, Ykm.shape[3],
@@ -171,3 +178,49 @@ def eq_folded_paged_round(conv_params, eq_to: EqParams, conv_state,
     fir, drive = both[..., :T], both[..., T:]
     eq_state, y = eq_apply_folded(eq_to, eq_state, fir, drive)
     return conv_state, eq_state, y
+
+
+# --- Lane state ops of the serving pool --------------------------------------
+# Each takes an optional [B] bool mask; the counter stays int32 throughout.
+
+
+def eq_begin_transition(state: EqState,
+                        stream_mask: "torch.Tensor | None" = None) -> EqState:
+    """Host-published retarget: 'to' becomes 'from', counter restarts. The
+    caller swaps params_from <- params_to and installs the new params_to;
+    freshly targeted cascades start from zero state."""
+    if stream_mask is None:
+        return EqState(s_from=state.s_to, s_to=torch.zeros_like(state.s_to),
+                       counter=torch.zeros_like(state.counter))
+    m = stream_mask.to(torch.bool)
+    return EqState(
+        s_from=torch.where(m[:, None, None], state.s_to, state.s_from),
+        s_to=state.s_to.masked_fill(m[:, None, None], 0.0),
+        counter=state.counter.masked_fill(m, 0),
+    )
+
+
+def eq_finish_transition(state: EqState,
+                         stream_mask: "torch.Tensor | None" = None) -> EqState:
+    """Control-clock transition end: idle the (masked) lanes' counters, so
+    a lane that paused mid-ramp jumps to the target rather than resuming
+    the blend in a later crossfading block."""
+    if stream_mask is None:
+        counter = torch.full_like(state.counter, COUNTER_IDLE)
+    else:
+        counter = state.counter.masked_fill(stream_mask.to(torch.bool),
+                                            COUNTER_IDLE)
+    return EqState(s_from=state.s_from, s_to=state.s_to, counter=counter)
+
+
+def eq_reset(state: EqState,
+             stream_mask: "torch.Tensor | None" = None) -> EqState:
+    """Zero filter histories (all lanes, or the masked ones)."""
+    if stream_mask is None:
+        return EqState(s_from=torch.zeros_like(state.s_from),
+                       s_to=torch.zeros_like(state.s_to),
+                       counter=state.counter)
+    m = stream_mask.to(torch.bool)[:, None, None]
+    return EqState(s_from=state.s_from.masked_fill(m, 0.0),
+                   s_to=state.s_to.masked_fill(m, 0.0),
+                   counter=state.counter)

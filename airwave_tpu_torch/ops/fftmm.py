@@ -18,6 +18,8 @@ import functools
 import numpy as np
 import torch
 
+from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
 
 @functools.lru_cache(maxsize=16)
 def _rfft_weights_np(n: int) -> np.ndarray:
@@ -46,16 +48,19 @@ def _irfft_weights_np(n: int, start: int, length: int) -> np.ndarray:
     return np.stack([re, im], axis=1).astype(np.float32)
 
 
-def rfft_weights_half(n: int, device: "torch.device | str" = "cpu") -> torch.Tensor:
+def rfft_weights_half(n: int,
+                      device: "torch.device | str" = DEFAULT_DEVICE) -> torch.Tensor:
     """First n//2 rows of the n-point analysis weights [n//2, K, 2]: the
     half-window transform u = W1 @ b of the UPOLS delay line (ops/upols)."""
-    return torch.tensor(_rfft_weights_np(n)[: n // 2], device=device)
+    return torch.tensor(_rfft_weights_np(n)[: n // 2],
+                        device=resolve_device(device))
 
 
 def irfft_weights(n: int, start: int, length: int,
-                  device: "torch.device | str" = "cpu") -> torch.Tensor:
+                  device: "torch.device | str" = DEFAULT_DEVICE) -> torch.Tensor:
     """[K, 2, length] synthesis weights of x[start:start+length]."""
-    return torch.tensor(_irfft_weights_np(n, start, length), device=device)
+    return torch.tensor(_irfft_weights_np(n, start, length),
+                        device=resolve_device(device))
 
 
 def rfft_mm(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,12 @@ The delay line is written in place, one slot per block, and the filter bank
 is rotated instead of the line.
 
 The carry layouts are the reference's, so states move between the two
-packages unchanged (interop.py). Unlike the reference, the steps update the
-single-block delay line IN PLACE: the state passed to conv_step is consumed.
+packages unchanged (interop.py). Unlike the reference, which is functional,
+conv_step writes the single-block delay line IN PLACE and the lane rolls
+(conv_roll_lanes, conv_roll_lanes_paged) write the lanes they fix in place:
+the state passed to them is consumed, and the returned state holds the same
+tensors. The serving pool owns its carry and relies on that: the kernel's
+delay-line operand stays the one contiguous buffer.
 
 Everything derived from the params alone (the MAC's filter operands, the
 padded and folded synthesis weights) is built by single_block_bank,
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from airwave_tpu_torch.kernels.mac_kmajor import mac_kmajor
 from airwave_tpu_torch.ops import fftmm
 
@@ -96,7 +101,7 @@ def make_conv_params(hrir: np.ndarray, block_size: int,
                      pad_to_pow2: bool = True,
                      lookahead: int = 1,
                      partitions: "int | None" = None,
-                     device: "torch.device | str" = "cpu") -> ConvParams:
+                     device: "torch.device | str" = DEFAULT_DEVICE) -> ConvParams:
     """Build ConvParams from time-domain HRIRs [S, E, L].
 
     A P-partition HRIR yields P+1 half-window coefficients. pad_to_pow2
@@ -147,6 +152,7 @@ def make_conv_params(hrir: np.ndarray, block_size: int,
     Gflip2 = np.concatenate([Gflip, Gflip], axis=2)  # [S, E, 2*P2, K]
     planes = np.stack([Gflip2.real, Gflip2.imag], axis=-1).astype(np.float32)
     n = 2 * block_size
+    device = resolve_device(device)
     return ConvParams(
         Gflip2=torch.tensor(planes, device=device),
         wf=fftmm.rfft_weights_half(n, device),
@@ -163,22 +169,24 @@ def padded_bin_count(block_size: int) -> int:
 
 def make_conv_state(batch: int, num_speakers: int, partition_count: int,
                     block_size: int,
-                    device: "torch.device | str" = "cpu") -> ConvState:
+                    device: "torch.device | str" = DEFAULT_DEVICE) -> ConvState:
     return ConvState(
         fdl=torch.zeros((padded_bin_count(block_size), num_speakers,
-                         partition_count, 2, batch), device=device),
+                         partition_count, 2, batch),
+                        device=resolve_device(device)),
         write_pos=0,
     )
 
 
 def make_conv_state_paged(batch: int, num_speakers: int, partition_count: int,
                           block_size: int, lookahead: int,
-                          device: "torch.device | str" = "cpu"
+                          device: "torch.device | str" = DEFAULT_DEVICE
                           ) -> PagedConvState:
     if partition_count % lookahead:
         raise ValueError(f"partition_count={partition_count} is not "
                          f"divisible by lookahead={lookahead}")
     shape = (padded_bin_count(block_size), num_speakers, 2, lookahead, batch)
+    device = resolve_device(device)
     return PagedConvState(
         pages=tuple(torch.zeros(shape, device=device)
                     for _ in range(partition_count // lookahead)),
@@ -305,13 +313,23 @@ def _mac_irfft(fdl: torch.Tensor, h: torch.Tensor,
 
 def conv_step(params: ConvParams, state: ConvState, x: torch.Tensor,
               bank: "torch.Tensor | None" = None,
-              synth: "torch.Tensor | None" = None):
+              synth: "torch.Tensor | None" = None,
+              active_mask: "torch.Tensor | None" = None):
     """One overlap-save block: x [B, S, T] float32 -> (state', y [B, E, T]).
 
     y[b, e] = sum_s conv(x_s, H[s, e]). The slot written is the
-    half-window spectrum of the new block alone, in place in state.fdl.
-    `bank` (single_block_bank) and `synth` (project_weights) may be passed
-    in so a stepping loop builds them once."""
+    half-window spectrum of the new block alone, IN PLACE in state.fdl:
+    the state passed in is consumed and the returned one holds the same
+    tensor (the reference returns a new line). `bank` (single_block_bank)
+    and `synth` (project_weights) may be passed in so a stepping loop
+    builds them once.
+
+    `active_mask` [B] bool (the serving pool's shared-cursor ring): an
+    inactive lane's slot is preserved exactly (the current slot, 1/P2 of
+    the line, is read back and `where`d into the write) while the shared
+    cursor still advances; the pool re-aligns the lane with
+    conv_roll_lanes before it next steps. An inactive lane's output row is
+    garbage and must not be delivered."""
     Kp, S, P2 = state.fdl.shape[:3]
     w = int(state.write_pos)
     if bank is None:
@@ -320,22 +338,58 @@ def conv_step(params: ConvParams, state: ConvState, x: torch.Tensor,
         synth = project_weights(params, Kp)
 
     u = fftmm.rfft_mm(x, params.wf)                      # [B, S, K, 2]
-    state.fdl.narrow(2, w, 1).copy_(_to_slot(u, Kp))
+    slot = state.fdl.narrow(2, w, 1)
+    new = _to_slot(u, Kp)
+    if active_mask is not None:
+        new = torch.where(active_mask.to(torch.bool), new, slot)
+    slot.copy_(new)
     y = _mac_irfft(state.fdl, _rotated_operand(bank, w), synth)
     return ConvState(fdl=state.fdl, write_pos=(w + 1) % P2), y
+
+
+def conv_roll_lanes(state: ConvState, lane_idx: torch.Tensor,
+                    shift: torch.Tensor) -> ConvState:
+    """Re-align paused lanes to the shared ring cursor, in place.
+
+    A lane that sat out d cursor advances (its slot preserved by
+    conv_step's active_mask) holds spectra rotated by d against the
+    cursor; rolling its slot axis forward by d mod P2 restores exact
+    alignment for any pause length (a full lap is the identity).
+
+    lane_idx [k] int64 lanes (distinct, in range: no sentinel entries),
+    shift [k] integer. Only those lanes' columns are read and written
+    (index_copy_ on the batch axis), so state.fdl stays the one
+    contiguous buffer the kernel reads."""
+    P2 = state.fdl.shape[2]
+    sh = shift.to(torch.int64) % P2
+    lanes = state.fdl.index_select(4, lane_idx)              # [Kp,S,P2,C,k]
+    # new slot p takes old slot (p - shift) mod P2
+    src = (torch.arange(P2, device=sh.device)[:, None] - sh[None, :]) % P2
+    rolled = torch.gather(lanes, 2, src[None, None, :, None, :].expand_as(lanes))
+    state.fdl.index_copy_(4, lane_idx, rolled)
+    return state
 
 
 # --- M-block lookahead step (paged delay line) ------------------------------
 
 
 def conv_step_paged_raw(params: ConvParams, state: PagedConvState,
-                        x: torch.Tensor, bank: "torch.Tensor | None" = None):
+                        x: torch.Tensor, bank: "torch.Tensor | None" = None,
+                        active_mask: "torch.Tensor | None" = None):
     """Analysis + MAC of the M-block lookahead step, stopping before the
     synthesis transform: x [B, S, M, T] -> (state', Ykm [M, E, Q, Kp, B]).
 
     Ykm is the frequency-domain mix in the kernel's output layout (rows
     (m, e, q), then bin, then batch); paged_project consumes it as it lies.
-    `bank` is paged_bank(params, M, Kp), built once by stepping loops."""
+    `bank` is paged_bank(params, M, Kp), built once by stepping loops.
+
+    `active_mask` [B] bool (the serving pool's multi-block tier): an idle
+    lane's column of the outgoing oldest page is `where`d into the new
+    page, so its rotation is cyclic and nothing is lost; after d idle
+    rounds its pages sit rotated by d, which the pool repairs with
+    conv_roll_lanes_paged before the lane next steps. An idle lane's
+    output row is garbage and must not be delivered. The step is
+    functional: the pages passed in are not written."""
     B, S, M, T = x.shape
     Kp = state.pages[0].shape[0]
     K = params.wf.shape[1]
@@ -347,6 +401,9 @@ def conv_step_paged_raw(params: ConvParams, state: PagedConvState,
     u = torch.mm(params.wf.reshape(T, K * 2).t(), xt)            # [(k,c), (s,j,b)]
     new_page = F.pad(u.view(K, 2, S, M, B).transpose(1, 2),
                      (0, 0, 0, 0, 0, 0, 0, 0, 0, Kp - K))        # [Kp, S, C, M, B]
+    if active_mask is not None:
+        new_page = torch.where(active_mask.to(torch.bool), new_page,
+                               state.pages[-1])
     pages = (new_page,) + tuple(state.pages[:-1])
     return PagedConvState(pages=pages), _paged_mac(pages, bank, M)
 
@@ -383,8 +440,55 @@ def paged_project(params: ConvParams, Ykm: torch.Tensor,
 
 def conv_step_paged(params: ConvParams, state: PagedConvState,
                     x: torch.Tensor, bank: "torch.Tensor | None" = None,
-                    synth: "torch.Tensor | None" = None):
+                    synth: "torch.Tensor | None" = None,
+                    active_mask: "torch.Tensor | None" = None):
     """M-block lookahead step: x [B, S, M, T] -> (state', y [B, M, E, T]),
     conv_step_paged_raw then paged_project."""
-    new_state, Ykm = conv_step_paged_raw(params, state, x, bank)
+    new_state, Ykm = conv_step_paged_raw(params, state, x, bank, active_mask)
     return new_state, paged_project(params, Ykm, synth=synth)
+
+
+def conv_roll_lanes_paged(state: PagedConvState, lane_idx: torch.Tensor,
+                          shift: torch.Tensor) -> PagedConvState:
+    """Re-align paused lanes of a paged delay line, in place.
+
+    An idle lane's masked step recycles its oldest page into the new page
+    0, so after d idle rounds its page i holds what page (i - d) mod n held
+    at pause time; new[i] = cur[(i + d) mod n] restores the order for any
+    pause length (a full cycle is the identity).
+
+    lane_idx [k] int64 lanes (distinct, in range: no sentinel entries),
+    shift [k] integer idle-round counts. Only those lanes' columns of each
+    page are read and written (index_copy_ on the batch axis)."""
+    n = len(state.pages)
+    sh = shift.to(torch.int64) % n
+    lanes = torch.stack([pg.index_select(4, lane_idx) for pg in state.pages])
+    src = (torch.arange(n, device=sh.device)[:, None] + sh[None, :]) % n
+    rolled = torch.gather(lanes, 0, src[:, None, None, None, None, :]
+                          .expand_as(lanes))
+    for pg, r in zip(state.pages, rolled):
+        pg.index_copy_(4, lane_idx, r)
+    return state
+
+
+def pad_conv_params(params: ConvParams, partitions: int) -> ConvParams:
+    """Zero-pad a bank's partition count to `partitions` (tail zeros).
+
+    The padded bank is the same filter (zero tail partitions convolve
+    nothing) on a larger delay-line shape. The single-profile pool calls it
+    with the bank's own count, where it returns the params unchanged; the
+    HRIR hot-swap that pads onto a larger carry is not ported yet."""
+    P2 = params.partition_count
+    partitions = int(partitions)
+    if partitions == P2:
+        return params
+    if partitions < P2:
+        raise ValueError(
+            f"pad_conv_params cannot shrink: bank has {P2} partitions, "
+            f"asked for {partitions}"
+        )
+    g_nat = params.Gflip2[:, :, :P2].flip(2)                # [S, E, P2, K, 2]
+    g_nat = F.pad(g_nat, (0, 0, 0, 0, 0, partitions - P2))
+    g_flip = g_nat.flip(2)
+    return ConvParams(Gflip2=torch.cat([g_flip, g_flip], dim=2),
+                      wf=params.wf, wi=params.wi)

@@ -7,27 +7,30 @@ import numpy as np
 import pytest
 import torch
 
-from airwave_tpu.io.apo import EqualizerDefinition, EqualizerFilter, FilterType
+from airwave_tpu.io import apo as japo
 from airwave_tpu.ops import biquad_design as jbd
 from airwave_tpu.ops import eq_block as jeq
 from airwave_tpu.ops import fftmm as jfftmm
 from airwave_tpu.ops import upols as jupols
-from airwave_tpu.utils import errors
+from airwave_tpu.utils import errors as jerrors
+from airwave_tpu_torch.io import apo as tapo
 from airwave_tpu_torch.ops import biquad_design as tbd
 from airwave_tpu_torch.ops import eq_block as teq
 from airwave_tpu_torch.ops import fftmm as tfftmm
 from airwave_tpu_torch.ops import upols as tupols
+from airwave_tpu_torch.utils import errors as terrors
 
-DEFINITION = EqualizerDefinition(
-    preamp_db=-2.56,
-    filters=(
-        EqualizerFilter(1, None, True, FilterType.LOW_SHELF, 105.0, -2.8, 0.70),
-        EqualizerFilter(2, None, True, FilterType.PEAKING, 894.2, 2.0, 1.24),
-        EqualizerFilter(3, None, False, FilterType.PEAKING, 2000.0, 3.0, 1.0),
-        EqualizerFilter(4, None, True, FilterType.PEAKING, 6165.4, 2.3, 5.37),
-        EqualizerFilter(5, None, True, FilterType.HIGH_SHELF, 10_000.0, -5.2, 0.70),
-    ),
-)
+# The same preset parsed by each package's own parser: the port is never
+# handed a definition of the JAX package.
+PRESET = b"""Preamp: -2.56 dB
+Filter 1: ON LSC Fc 105 Hz Gain -2.8 dB Q 0.70
+Filter 2: ON PK Fc 894.2 Hz Gain 2.0 dB Q 1.24
+Filter 3: OFF PK Fc 2000 Hz Gain 3.0 dB Q 1.0
+Filter 4: ON PK Fc 6165.4 Hz Gain 2.3 dB Q 5.37
+Filter 5: ON HSC Fc 10000 Hz Gain -5.2 dB Q 0.70
+"""
+DEFINITION = tapo.parse(PRESET, "preset")
+DEFINITION_JAX = japo.parse(PRESET, "preset")
 
 
 def _equal(port, ref):
@@ -39,7 +42,7 @@ def _equal(port, ref):
 
 def test_design_cascade_and_block_ssm_bit_identical():
     pre_t, co_t = tbd.design_cascade(DEFINITION, 48_000.0)
-    pre_j, co_j = jbd.design_cascade(DEFINITION, 48_000.0)
+    pre_j, co_j = jbd.design_cascade(DEFINITION_JAX, 48_000.0)
     assert pre_t == pre_j
     assert [c.as_array().tolist() for c in co_t] == \
         [c.as_array().tolist() for c in co_j]
@@ -51,17 +54,21 @@ def test_design_cascade_and_block_ssm_bit_identical():
 
 
 def test_design_errors_match():
-    bad = EqualizerDefinition(
-        0.0, (EqualizerFilter(1, None, True, FilterType.PEAKING, 30_000.0, 1.0, 1.0),))
-    with pytest.raises(errors.EqInvalidFilter):
-        tbd.design_cascade(bad, 48_000.0)
-    with pytest.raises(errors.EqInvalidSampleRate):
-        tbd.design_cascade(None, 0.0)
-    with pytest.raises(errors.InvalidQ):
-        tbd.make_biquad(FilterType.PEAKING, 1.0, 1000.0, 0.0, 48_000.0)
-    big = tbd.make_biquad(FilterType.PEAKING, 1.0, 1000.0, 1.0, 48_000.0)
-    with pytest.raises(errors.EqTooManyFilters):
-        tbd.block_ssm([big] * 3, 1.0, 64, state_dim=4)
+    """Each package raises its own error class of the same name on the
+    same bad input."""
+    for bd, apo, errors in ((tbd, tapo, terrors), (jbd, japo, jerrors)):
+        bad = apo.EqualizerDefinition(0.0, (apo.EqualizerFilter(
+            1, None, True, apo.FilterType.PEAKING, 30_000.0, 1.0, 1.0),))
+        with pytest.raises(errors.EqInvalidFilter):
+            bd.design_cascade(bad, 48_000.0)
+        with pytest.raises(errors.EqInvalidSampleRate):
+            bd.design_cascade(None, 0.0)
+        with pytest.raises(errors.InvalidQ):
+            bd.make_biquad(apo.FilterType.PEAKING, 1.0, 1000.0, 0.0, 48_000.0)
+        big = bd.make_biquad(apo.FilterType.PEAKING, 1.0, 1000.0, 1.0,
+                             48_000.0)
+        with pytest.raises(errors.EqTooManyFilters):
+            bd.block_ssm([big] * 3, 1.0, 64, state_dim=4)
 
 
 @pytest.mark.parametrize("n", [128, 1024])
@@ -69,15 +76,18 @@ def test_dft_weights_bit_identical(n):
     _equal(tfftmm._rfft_weights_np(n), jfftmm._rfft_weights_np(n))
     _equal(tfftmm._irfft_weights_np(n, n // 2, n // 2),
            jfftmm._irfft_weights_np(n, n // 2, n // 2))
-    _equal(tfftmm.rfft_weights_half(n), jfftmm.rfft_weights_half(n))
-    _equal(tfftmm.irfft_weights(n, 0, n), jfftmm.irfft_weights(n, 0, n))
+    _equal(tfftmm.rfft_weights_half(n, device="cpu"),
+           jfftmm.rfft_weights_half(n))
+    _equal(tfftmm.irfft_weights(n, 0, n, device="cpu"),
+           jfftmm.irfft_weights(n, 0, n))
 
 
 def test_rfft_irfft_mm_match_jax():
     rng = np.random.default_rng(5)
     n = 128
     x = rng.standard_normal((3, 2, n)).astype(np.float32)
-    wf, wi = tfftmm.rfft_weights_half(n), tfftmm.irfft_weights(n, 0, n)
+    wf = tfftmm.rfft_weights_half(n, device="cpu")
+    wi = tfftmm.irfft_weights(n, 0, n, device="cpu")
     u_t = tfftmm.rfft_mm(torch.from_numpy(x[..., : n // 2]), wf).numpy()
     u_j = np.asarray(jfftmm.rfft_mm(jnp.asarray(x[..., : n // 2]),
                                     jfftmm.rfft_weights_half(n)))
@@ -109,7 +119,8 @@ def test_make_conv_params_bit_identical(length, pow2, lookahead, partitions):
     rng = np.random.default_rng(length + lookahead)
     hrir = (rng.standard_normal((2, 2, length)) * 0.3).astype(np.float32)
     pt = tupols.make_conv_params(hrir, 64, pad_to_pow2=pow2,
-                                 lookahead=lookahead, partitions=partitions)
+                                 lookahead=lookahead, partitions=partitions,
+                                 device="cpu")
     pj = jupols.make_conv_params(hrir, 64, pad_to_pow2=pow2,
                                  lookahead=lookahead, partitions=partitions)
     for a, b in zip(pt, pj):
@@ -128,18 +139,18 @@ def test_make_conv_params_rejects_what_jax_rejects(lookahead, partitions):
                                 partitions=partitions)
     with pytest.raises(ValueError) as terr:
         tupols.make_conv_params(hrir, 64, lookahead=lookahead,
-                                partitions=partitions)
+                                partitions=partitions, device="cpu")
     assert str(terr.value) == str(jerr.value)
 
 
 @pytest.mark.parametrize("T,state_dim", [(64, 128), (512, 128), (64, 32)])
 def test_make_eq_params_bit_identical(T, state_dim):
     pre, co = tbd.design_cascade(DEFINITION, 48_000.0)
-    pt = teq.make_eq_params(co, pre, T, state_dim)
+    pt = teq.make_eq_params(co, pre, T, state_dim, device="cpu")
     pj = jeq.make_eq_params(co, pre, T, state_dim)
     for a, b in zip(pt, pj):
         _equal(a, b)
-    for a, b in zip(teq.unity_eq_params(T, state_dim),
+    for a, b in zip(teq.unity_eq_params(T, state_dim, device="cpu"),
                     jeq.unity_eq_params(T, state_dim)):
         _equal(a, b)
     assert teq.COUNTER_IDLE == int(jeq.COUNTER_IDLE)

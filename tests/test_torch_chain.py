@@ -7,13 +7,14 @@ import numpy as np
 import pytest
 import torch
 
-from airwave_tpu.io.apo import EqualizerDefinition, EqualizerFilter, FilterType
 from airwave_tpu.models import bake as jbake
 from airwave_tpu.models import binaural as jbin
 from airwave_tpu.oracle.eq_oracle import EqCascadeOracle
 from airwave_tpu.oracle.upols_oracle import UPOLSOracle
 from airwave_tpu.ops import eq_block as jeq
 from airwave_tpu.ops import upols as jupols
+from airwave_tpu_torch.io.apo import (EqualizerDefinition, EqualizerFilter,
+                                      FilterType)
 from airwave_tpu_torch import interop
 from airwave_tpu_torch.models import bake as tbake
 from airwave_tpu_torch.models import binaural as tbin
@@ -64,7 +65,7 @@ def test_bake_matches_jax_and_oracle(M):
     hrir = _hrir(rng)
     x = (rng.standard_normal((B, S, 7 * T + 19)) * 0.4).astype(np.float32)
     yt, st = tbake.bake(hrir, x, 48_000.0, COEFFS, PREAMP, block_size=T,
-                        blocks_per_step=M)
+                        blocks_per_step=M, device="cpu")
     yj, _ = jbake.bake(hrir, x, 48_000.0, COEFFS, PREAMP, block_size=T,
                        blocks_per_step=M)
     assert yt.shape == yj.shape == (B, 2, x.shape[-1])
@@ -78,7 +79,8 @@ def test_bake_without_eq_matches_jax():
     hrir = _hrir(rng, 100)
     x = (rng.standard_normal((2, S, 4 * T)) * 0.4).astype(np.float32)
     for M in (1, 2):
-        yt, _ = tbake.bake(hrir, x, 48_000.0, block_size=T, blocks_per_step=M)
+        yt, _ = tbake.bake(hrir, x, 48_000.0, block_size=T, blocks_per_step=M,
+                           device="cpu")
         yj, _ = jbake.bake(hrir, x, 48_000.0, block_size=T, blocks_per_step=M)
         assert rel_rms(yt, yj) <= PORT_TOL
 
@@ -106,12 +108,13 @@ def test_bake_continues_across_packages(M):
     whole, _ = jbake.bake(hrir, x, 48_000.0, COEFFS, PREAMP, **kw)
 
     first, mid_j = jbake.bake(hrir, x[:, :, :half], 48_000.0, COEFFS, PREAMP, **kw)
-    mid_t = interop.chain_state_from_numpy(mid_j)
+    mid_t = interop.chain_state_from_numpy(mid_j, device="cpu")
     second, end_t = tbake.bake(hrir, x[:, :, half:], 48_000.0, COEFFS, PREAMP,
-                               state=mid_t, **kw)
+                               state=mid_t, **kw, device="cpu")
     assert rel_rms(np.concatenate([first, second], -1), whole) <= PORT_TOL
 
-    first_t, mid_t = tbake.bake(hrir, x[:, :, :half], 48_000.0, COEFFS, PREAMP, **kw)
+    first_t, mid_t = tbake.bake(hrir, x[:, :, :half], 48_000.0, COEFFS, PREAMP, **kw,
+                                device="cpu")
     mid_np = interop.chain_state_to_numpy(mid_t)
     second_j, _ = jbake.bake(hrir, x[:, :, half:], 48_000.0, COEFFS, PREAMP,
                              state=_jax_state(mid_np), **kw)
@@ -132,10 +135,11 @@ def test_bake_leaves_passed_state_intact(M):
         conv = (s.conv.pages if M > 1 else (s.conv.fdl, s.conv.write_pos))
         return [np.array(a, copy=True) for a in (*conv, *s.eq)]
 
-    _, mid = tbake.bake(hrir, x[:, :, :2 * M * T], 48_000.0, COEFFS, PREAMP, **kw)
+    _, mid = tbake.bake(hrir, x[:, :, :2 * M * T], 48_000.0, COEFFS, PREAMP, **kw,
+                        device="cpu")
     before = copy_of(mid)
     again = [tbake.bake(hrir, x[:, :, 2 * M * T:], 48_000.0, COEFFS, PREAMP,
-                        state=mid, **kw)[0] for _ in range(2)]
+                        state=mid, **kw, device="cpu")[0] for _ in range(2)]
     np.testing.assert_array_equal(again[0], again[1])
     for a, b in zip(copy_of(mid), before):
         np.testing.assert_array_equal(a, b)
@@ -145,22 +149,23 @@ def test_interop_params_round_trip():
     rng = np.random.default_rng(3)
     pj = jupols.make_conv_params(_hrir(rng), T)
     ej = jeq.make_eq_params(COEFFS, PREAMP, T)
-    for port, ref in zip(interop.conv_params_from_numpy(pj), pj):
+    for port, ref in zip(interop.conv_params_from_numpy(pj, device="cpu"), pj):
         np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
     for port, ref in zip(interop.eq_params_to_numpy(
-            interop.eq_params_from_numpy(ej)), ej):
+            interop.eq_params_from_numpy(ej, device="cpu")), ej):
         np.testing.assert_array_equal(port, np.asarray(ref))
     for port, ref in zip(interop.conv_params_to_numpy(
-            interop.conv_params_from_numpy(pj)), pj):
+            interop.conv_params_from_numpy(pj, device="cpu")), pj):
         np.testing.assert_array_equal(port, np.asarray(ref))
 
 
 def _chain_inputs(rng, M):
     hrir = _hrir(rng, 200)
     pj = jupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M)
-    pt = tupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M)
+    pt = tupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M,
+                                 device="cpu")
     ej = jeq.make_eq_params(COEFFS, PREAMP, T)
-    et = teq.make_eq_params(COEFFS, PREAMP, T)
+    et = teq.make_eq_params(COEFFS, PREAMP, T, device="cpu")
     return pj, pt, ej, et
 
 
@@ -169,10 +174,10 @@ def _chain_inputs(rng, M):
 def test_chain_step_matches_jax(spatial, crossfading):
     rng = np.random.default_rng(5)
     pj, pt, ej, et = _chain_inputs(rng, 1)
-    uj, ut = jeq.unity_eq_params(T), teq.unity_eq_params(T)
+    uj, ut = jeq.unity_eq_params(T), teq.unity_eq_params(T, device="cpu")
     sj = jbin.ChainState(jupols.make_conv_state(B, S, pj.partition_count, T),
                          jeq.eq_begin_transition(jeq.make_eq_state(B)))
-    st = interop.chain_state_from_numpy(sj)
+    st = interop.chain_state_from_numpy(sj, device="cpu")
     for _ in range(6):
         x = (rng.standard_normal((B, S, T)) * 0.4).astype(np.float32)
         sj, yj = jbin.chain_step_fn(pj, uj, ej, sj, jnp.asarray(x), 960,
@@ -191,9 +196,9 @@ def test_chain_step_multi_matches_jax(crossfading):
     sj = jbin.ChainState(
         jupols.make_conv_state_paged(B, S, pj.partition_count, T, M),
         jeq.make_eq_state(B))
-    st = interop.chain_state_from_numpy(sj)
+    st = interop.chain_state_from_numpy(sj, device="cpu")
     chain = tbin.BinauralChain(pt, et, et, 960, T, blocks_per_step=M)
-    st2 = interop.chain_state_from_numpy(sj)
+    st2 = interop.chain_state_from_numpy(sj, device="cpu")
     for _ in range(5):
         x = (rng.standard_normal((B, S, M, T)) * 0.4).astype(np.float32)
         sj, yj = jbin.chain_step_multi_fn(pj, ej, ej, sj, jnp.asarray(x), 960,
@@ -218,10 +223,12 @@ def test_binaural_chain_module():
     assert chain.to("cpu") is chain
     for a, b in zip(chain.conv_params, pt):
         assert a is b or torch.equal(a, b)
-    st = tbin.ChainState(tupols.make_conv_state(B, S, pt.partition_count, T),
-                         teq.make_eq_state(B))
-    sr = tbin.ChainState(tupols.make_conv_state(B, S, pt.partition_count, T),
-                         teq.make_eq_state(B))
+    st = tbin.ChainState(tupols.make_conv_state(B, S, pt.partition_count, T,
+                                                device="cpu"),
+                         teq.make_eq_state(B, device="cpu"))
+    sr = tbin.ChainState(tupols.make_conv_state(B, S, pt.partition_count, T,
+                                                device="cpu"),
+                         teq.make_eq_state(B, device="cpu"))
     for _ in range(3):
         x = torch.from_numpy((rng.standard_normal((B, S, T)) * 0.4).astype(np.float32))
         st, y = chain(st, x)

@@ -1,16 +1,17 @@
 """ops/eq_block of the PyTorch port against the JAX package: the steady and
-the crossfading eq_step, eq_apply_folded and eq_folded_paged_round, and the
-float64 cascade oracle."""
+the crossfading eq_step, eq_apply_folded and eq_folded_paged_round, the
+serving pool's lane ops, and the float64 cascade oracle."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from airwave_tpu.io.apo import EqualizerDefinition, EqualizerFilter, FilterType
 from airwave_tpu.oracle.eq_oracle import EqCascadeOracle
 from airwave_tpu.ops import eq_block as jeq
 from airwave_tpu.ops import upols as jupols
+from airwave_tpu_torch.io.apo import (EqualizerDefinition, EqualizerFilter,
+                                      FilterType)
 from airwave_tpu_torch.ops import biquad_design as tbd
 from airwave_tpu_torch.ops import eq_block as teq
 from airwave_tpu_torch.ops import upols as tupols
@@ -40,8 +41,8 @@ def rel_rms(a, ref):
 
 def _params(T, definition=DEFINITION):
     pre, co = tbd.design_cascade(definition, 48_000.0)
-    return (teq.make_eq_params(co, pre, T), jeq.make_eq_params(co, pre, T),
-            (pre, co))
+    return (teq.make_eq_params(co, pre, T, device="cpu"),
+            jeq.make_eq_params(co, pre, T), (pre, co))
 
 
 def _to_torch_state(sj):
@@ -53,7 +54,7 @@ def test_eq_step_steady_matches_jax_and_oracle():
     B, n = 2, 12
     pt, pj, (pre, co) = _params(T)
     x = (rng.standard_normal((B, 2, n * T)) * 0.5).astype(np.float32)
-    st, sj = teq.make_eq_state(B), jeq.make_eq_state(B)
+    st, sj = teq.make_eq_state(B, device="cpu"), jeq.make_eq_state(B)
     outs_t, outs_j = [], []
     for i in range(n):
         blk = x[:, :, i * T:(i + 1) * T]
@@ -76,7 +77,7 @@ def test_eq_step_crossfade_matches_jax():
     rng = np.random.default_rng(4)
     B = 2
     pt, pj, _ = _params(T)
-    ut, uj = teq.unity_eq_params(T), jeq.unity_eq_params(T)
+    ut, uj = teq.unity_eq_params(T, device="cpu"), jeq.unity_eq_params(T)
     sj = jeq.eq_begin_transition(jeq.make_eq_state(B),
                                  jnp.asarray([True, False]))
     st = _to_torch_state(sj)
@@ -117,10 +118,11 @@ def test_eq_folded_paged_round_matches_jax(M):
     pt, pj, _ = _params(T)
     hrir = (rng.standard_normal((S, 2, 1200)) * 0.3).astype(np.float32)
     cj = jupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M)
-    ct = tupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M)
+    ct = tupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M,
+                                 device="cpu")
     csj = jupols.make_conv_state_paged(B, S, cj.partition_count, T, M)
-    cst = tupols.make_conv_state_paged(B, S, ct.partition_count, T, M)
-    esj, est = jeq.make_eq_state(B), teq.make_eq_state(B)
+    cst = tupols.make_conv_state_paged(B, S, ct.partition_count, T, M, device="cpu")
+    esj, est = jeq.make_eq_state(B), teq.make_eq_state(B, device="cpu")
     for _ in range(2 * len(cst.pages) + 1):
         x = (rng.standard_normal((B, S, M, T)) * 0.4).astype(np.float32)
         csj, esj, yj = jeq.eq_folded_paged_round(cj, pj, csj, esj, jnp.asarray(x))
@@ -130,3 +132,28 @@ def test_eq_folded_paged_round_matches_jax(M):
         assert rel_rms(yt.numpy(), np.asarray(yj)) <= PORT_TOL
     assert rel_rms(est.s_to.numpy(), np.asarray(esj.s_to)) <= PORT_TOL
     np.testing.assert_array_equal(est.counter.numpy(), np.asarray(esj.counter))
+
+
+@pytest.mark.parametrize("op", ["eq_begin_transition", "eq_finish_transition",
+                                "eq_reset"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_lane_ops_match_jax(op, masked):
+    """The pool's EQ lane ops, on all lanes or a [B] mask: equal to the
+    JAX ops, with the int32 counter kept int32."""
+    rng = np.random.default_rng(12)
+    B, N = 5, 16
+    s_from = rng.standard_normal((B, 2, N)).astype(np.float32)
+    s_to = rng.standard_normal((B, 2, N)).astype(np.float32)
+    counter = np.array([0, 77, 960, teq.COUNTER_IDLE, 5], np.int32)
+    mask = np.array([True, False, True, True, False]) if masked else None
+    sj = getattr(jeq, op)(
+        jeq.EqState(jnp.asarray(s_from), jnp.asarray(s_to),
+                    jnp.asarray(counter)),
+        None if mask is None else jnp.asarray(mask))
+    st = getattr(teq, op)(
+        teq.EqState(torch.from_numpy(s_from), torch.from_numpy(s_to),
+                    torch.from_numpy(counter)),
+        None if mask is None else torch.from_numpy(mask))
+    assert st.counter.dtype == torch.int32
+    for a, b in zip(st, sj):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -1,4 +1,5 @@
-"""The PyTorch port imports no jax, and chip_smoke.py refuses to run without
+"""The PyTorch port imports no jax and no module of the JAX package, its
+entry points default to the card, and chip_smoke.py refuses to run without
 a CUDA card.
 
 Each check runs in a fresh interpreter: after a failed `import
@@ -15,6 +16,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,13 +51,16 @@ def test_port_imports_and_bakes_with_jax_blocked():
             airwave_tpu_torch.__path__, "airwave_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        for name in ("runtime.stream_pool", "graph.renderer", "native"):
+            assert "airwave_tpu_torch." + name in names, name
 
         from airwave_tpu_torch.models.bake import bake
         rng = np.random.default_rng(0)
         hrir = (rng.standard_normal((2, 2, 100)) * 0.3).astype(np.float32)
         x = (rng.standard_normal((2, 2, 200)) * 0.4).astype(np.float32)
         for m in (1, 2):
-            y, _ = bake(hrir, x, 48_000.0, block_size=64, blocks_per_step=m)
+            y, _ = bake(hrir, x, 48_000.0, block_size=64, blocks_per_step=m,
+                        device="cpu")
             assert y.shape == (2, 2, 200) and np.isfinite(y).all()
         assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
         print("modules", len(names))
@@ -73,19 +78,33 @@ def test_jax_block_is_effective():
     assert "jax is blocked" in proc.stderr
 
 
+def _imported_modules(path: pathlib.Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
 def test_chip_smoke_names_no_jax_module():
     """chip_smoke.py imports torch, numpy, scipy and the port only: no jax
     and no module of the JAX package `airwave_tpu`."""
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            names.add(node.module)
+    names = _imported_modules(REPO / "chip_smoke.py")
     roots = {n.split(".")[0] for n in names}
     assert "airwave_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "airwave_tpu"}, sorted(names)
+
+
+def test_port_names_no_jax_package_module():
+    """No file of the port imports jax or any module of `airwave_tpu`,
+    jax-free or not: the port keeps its own copies of the host modules."""
+    files = sorted((REPO / "airwave_tpu_torch").rglob("*.py"))
+    assert len(files) > 20
+    for path in files:
+        roots = {n.split(".")[0] for n in _imported_modules(path)}
+        assert not roots & {"jax", "jaxlib", "airwave_tpu"}, path
 
 
 def _assert_smoke_refused(proc: subprocess.CompletedProcess) -> None:
@@ -115,6 +134,37 @@ def test_chip_smoke_fails_alone(tmp_path):
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                           env=env, capture_output=True, text=True, timeout=120)
     _assert_smoke_refused(proc)
+
+
+def _hrir_wav_and_layout():
+    from airwave_tpu_torch.assets import channel_maps
+    from airwave_tpu_torch.io.wav import WAVData
+
+    audio = np.random.default_rng(0).standard_normal((14, 100))
+    return WAVData(48_000.0, audio.astype(np.float32)), channel_maps.STEREO
+
+
+def test_entry_points_default_to_the_card():
+    """With no device, resolve_device, bake, prepare_renderer and StreamPool
+    ask for the card; where there is none they raise and run nothing."""
+    from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+    from airwave_tpu_torch.graph.renderer import prepare_renderer
+    from airwave_tpu_torch.models.bake import bake
+    from airwave_tpu_torch.runtime.stream_pool import StreamPool
+
+    assert torch.device(DEFAULT_DEVICE).type == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the defaults would run")
+    wav, layout = _hrir_wav_and_layout()
+    renderer = prepare_renderer(wav, layout, 48_000.0, 64, device="cpu")
+    hrir = np.zeros((2, 2, 100), np.float32)
+    x = np.zeros((1, 2, 64), np.float32)
+    for call in (resolve_device,
+                 lambda: bake(hrir, x, 48_000.0, block_size=64),
+                 lambda: prepare_renderer(wav, layout, 48_000.0, 64),
+                 lambda: StreamPool(2, 48_000.0, renderer, block_size=64)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
 
 
 def test_resolve_device_never_falls_back():

@@ -52,7 +52,8 @@ def test_accumulated_pages_match_jax_paged_mac():
         x = (rng.standard_normal((B, S, M, T)) * 0.5).astype(np.float32)
         sj, ykm = jupols.conv_step_paged_raw(pj, sj, jnp.asarray(x))
     Kp = tupols.padded_bin_count(T)
-    pt = tupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M)
+    pt = tupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M,
+                                 device="cpu")
     bank = tupols.paged_bank(pt, M, Kp)
     assert bank.shape == (3, Kp, 32, 32)
     pages = tuple(torch.tensor(np.asarray(pg)) for pg in sj.pages)

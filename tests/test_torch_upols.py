@@ -47,11 +47,11 @@ def test_conv_step_through_partition_wrap_matches_jax_and_oracle():
     xs = [(rng.standard_normal((B, S, T))).astype(np.float32)
           for _ in range(n_blocks)]
 
-    pt = tupols.make_conv_params(hrir, T)
+    pt = tupols.make_conv_params(hrir, T, device="cpu")
     assert pt.partition_count == 9
     Kp = tupols.padded_bin_count(T)
     bank, synth = tupols.single_block_bank(pt, Kp), tupols.project_weights(pt, Kp)
-    st = tupols.make_conv_state(B, S, pt.partition_count, T)
+    st = tupols.make_conv_state(B, S, pt.partition_count, T, device="cpu")
     ys = []
     for x in xs:
         st, y = tupols.conv_step(pt, st, torch.from_numpy(x), bank, synth)
@@ -81,10 +81,10 @@ def _oracle(h, signal, T):
 def test_conv_step_builds_operands_when_not_given():
     rng = np.random.default_rng(8)
     hrir = (rng.standard_normal((2, 2, 150)) * 0.3).astype(np.float32)
-    p = tupols.make_conv_params(hrir, 64)
+    p = tupols.make_conv_params(hrir, 64, device="cpu")
     x = torch.from_numpy(rng.standard_normal((2, 2, 64)).astype(np.float32))
-    s1 = tupols.make_conv_state(2, 2, p.partition_count, 64)
-    s2 = tupols.make_conv_state(2, 2, p.partition_count, 64)
+    s1 = tupols.make_conv_state(2, 2, p.partition_count, 64, device="cpu")
+    s2 = tupols.make_conv_state(2, 2, p.partition_count, 64, device="cpu")
     Kp = tupols.padded_bin_count(64)
     for _ in range(3):
         s1, y1 = tupols.conv_step(p, s1, x)
@@ -99,10 +99,11 @@ def test_conv_step_paged_matches_jax(M, L):
     B, S, T = 3, 2, 64
     hrir = (rng.standard_normal((S, 2, L)) * 0.3).astype(np.float32)
     pj = jupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M)
-    pt = tupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M)
+    pt = tupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M,
+                                 device="cpu")
     n_pages = pj.partition_count // M
     sj = jupols.make_conv_state_paged(B, S, pj.partition_count, T, M)
-    st = tupols.make_conv_state_paged(B, S, pt.partition_count, T, M)
+    st = tupols.make_conv_state_paged(B, S, pt.partition_count, T, M, device="cpu")
     assert len(st.pages) == n_pages
     Kp = tupols.padded_bin_count(T)
     bank = tupols.paged_bank(pt, M, Kp)
@@ -131,7 +132,8 @@ def test_paged_project_with_post_matches_jax():
     B, S, T, M = 2, 2, 64, 2
     hrir = (rng.standard_normal((S, 2, 100)) * 0.3).astype(np.float32)
     pj = jupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M)
-    pt = tupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M)
+    pt = tupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M,
+                                 device="cpu")
     Kp = tupols.padded_bin_count(T)
     ykm = rng.standard_normal((M, 2, 2, Kp, B)).astype(np.float32)
     post = rng.standard_normal((T, 80)).astype(np.float32)
@@ -168,11 +170,118 @@ def test_conv_resets_match_jax():
 
 
 def test_state_builders_match_jax():
-    st = tupols.make_conv_state(3, 2, 9, 64)
+    st = tupols.make_conv_state(3, 2, 9, 64, device="cpu")
     sj = jupols.make_conv_state(3, 2, 9, 64)
     assert st.fdl.shape == sj.fdl.shape and st.write_pos == 0
-    pt = tupols.make_conv_state_paged(3, 2, 12, 64, 4)
+    pt = tupols.make_conv_state_paged(3, 2, 12, 64, 4, device="cpu")
     pj = jupols.make_conv_state_paged(3, 2, 12, 64, 4)
     assert [p.shape for p in pt.pages] == [p.shape for p in pj.pages]
     with pytest.raises(ValueError):
-        tupols.make_conv_state_paged(3, 2, 10, 64, 4)
+        tupols.make_conv_state_paged(3, 2, 10, 64, 4, device="cpu")
+
+
+def _pause_pattern(rng, B, step, lap):
+    """Lanes active at `step`: random, all in the first two steps, and lane
+    0 held idle for more than a full lap once."""
+    active = rng.random(B) < 0.55
+    if step < 2:
+        active[:] = True
+    if lap + 2 <= step <= 2 * lap + 4:
+        active[0] = False
+    return active
+
+
+def test_masked_ring_step_with_debt_rolls_matches_jax():
+    """The pool's shared-cursor ring at the op level: the masked slot write
+    preserves idle lanes, conv_roll_lanes re-aligns them at rejoin (also
+    after a pause longer than a cursor lap). The carry and the active
+    lanes' output match the JAX ops step for step."""
+    rng = np.random.default_rng(3)
+    T, B, S = 64, 5, 2
+    hrir = (rng.standard_normal((S, 2, 400)) * 0.3).astype(np.float32)
+    pj = jupols.make_conv_params(hrir, T)
+    pt = tupols.make_conv_params(hrir, T, device="cpu")
+    p2 = pt.partition_count
+    sj = jupols.make_conv_state(B, S, p2, T)
+    st = tupols.make_conv_state(B, S, p2, T, device="cpu")
+    debt = np.zeros(B, np.int64)
+    rolled = 0
+    for step in range(3 * p2 + 8):
+        active = _pause_pattern(rng, B, step, p2)
+        x = (rng.standard_normal((B, S, T)) * active[:, None, None]
+             ).astype(np.float32)
+        rejoin = np.where(active & (debt % p2 != 0))[0]
+        if len(rejoin):
+            sj = jupols.conv_roll_lanes(sj, jnp.asarray(rejoin, np.int32),
+                                        jnp.asarray(debt[rejoin], np.int32))
+            fdl = st.fdl
+            st = tupols.conv_roll_lanes(st, torch.from_numpy(rejoin),
+                                        torch.from_numpy(debt[rejoin]))
+            assert st.fdl is fdl  # in place: the kernel's operand stays put
+            rolled += 1
+        sj, yj = jupols.conv_step(pj, sj, jnp.asarray(x), jnp.asarray(active))
+        st, yt = tupols.conv_step(pt, st, torch.from_numpy(x),
+                                  active_mask=torch.from_numpy(active))
+        assert st.fdl.is_contiguous() and st.write_pos == int(sj.write_pos)
+        assert rel_rms(st.fdl.numpy(), np.asarray(sj.fdl)) <= PORT_TOL, step
+        if active.any():
+            assert rel_rms(yt.numpy()[active],
+                           np.asarray(yj)[active]) <= PORT_TOL, step
+        debt[active] = 0
+        debt[~active] += 1
+    assert rolled > 0
+
+
+def test_masked_paged_step_with_debt_rolls_matches_jax():
+    """The pool's paged tier at the op level: idle lanes recycle their
+    oldest page, conv_roll_lanes_paged re-aligns them at rejoin (also after
+    a pause longer than a page cycle); pages and active output match JAX."""
+    rng = np.random.default_rng(4)
+    T, B, S, M = 64, 5, 2, 4
+    hrir = (rng.standard_normal((S, 2, 400)) * 0.3).astype(np.float32)
+    pj = jupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M)
+    pt = tupols.make_conv_params(hrir, T, pad_to_pow2=False, lookahead=M,
+                                 device="cpu")
+    p2 = pt.partition_count
+    n_pages = p2 // M
+    sj = jupols.make_conv_state_paged(B, S, p2, T, M)
+    st = tupols.make_conv_state_paged(B, S, p2, T, M, device="cpu")
+    debt = np.zeros(B, np.int64)
+    rolled = 0
+    for rnd in range(4 * n_pages + 6):
+        active = _pause_pattern(rng, B, rnd, n_pages)
+        x = (rng.standard_normal((B, S, M, T)) * active[:, None, None, None]
+             ).astype(np.float32)
+        rejoin = np.where(active & (debt % n_pages != 0))[0]
+        if len(rejoin):
+            sj = jupols.conv_roll_lanes_paged(
+                sj, jnp.asarray(rejoin, np.int32),
+                jnp.asarray(debt[rejoin], np.int32))
+            st = tupols.conv_roll_lanes_paged(
+                st, torch.from_numpy(rejoin), torch.from_numpy(debt[rejoin]))
+            rolled += 1
+        sj, yj = jupols.conv_step_paged(pj, sj, jnp.asarray(x),
+                                        active_mask=jnp.asarray(active))
+        st, yt = tupols.conv_step_paged(pt, st, torch.from_numpy(x),
+                                        active_mask=torch.from_numpy(active))
+        for a, b in zip(st.pages, sj.pages):
+            assert rel_rms(a.numpy(), np.asarray(b)) <= PORT_TOL, rnd
+        if active.any():
+            assert rel_rms(yt.numpy()[active],
+                           np.asarray(yj)[active]) <= PORT_TOL, rnd
+        debt[active] = 0
+        debt[~active] += 1
+    assert rolled > 0
+
+
+def test_pad_conv_params_matches_jax():
+    rng = np.random.default_rng(6)
+    hrir = (rng.standard_normal((2, 2, 150)) * 0.3).astype(np.float32)
+    pj = jupols.make_conv_params(hrir, 64, pad_to_pow2=False)
+    pt = tupols.make_conv_params(hrir, 64, pad_to_pow2=False, device="cpu")
+    assert tupols.pad_conv_params(pt, pt.partition_count) is pt
+    for a, b in zip(tupols.pad_conv_params(pt, 7),
+                    jupols.pad_conv_params(pj, 7)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    with pytest.raises(ValueError, match="cannot shrink"):
+        tupols.pad_conv_params(pt, 2)
