@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from airwave_tpu_torch.kernels.mac_kmajor import mac_kmajor
+from airwave_tpu_torch.kernels.mac_kmajor import mac_kmajor, mac_kmajor_pages
 from airwave_tpu_torch.ops import fftmm
 
 
@@ -410,18 +410,11 @@ def conv_step_paged_raw(params: ConvParams, state: PagedConvState,
 
 def _paged_mac(pages, bank: torch.Tensor, M: int) -> torch.Tensor:
     """Multiply-accumulate every page against its filter window (bank
-    [n_pages, Kp, O, R]): one kernel launch per page into one [O, Kp, B]
-    accumulator (O = M*E*Q)."""
+    [n_pages, Kp, O, R]) in one mac_kmajor_pages launch, which writes the
+    [O, Kp, B] sum once (O = M*E*Q); returned as Ykm [M, E, Q, Kp, B]."""
     Kp, S, C, _, B = pages[0].shape
-    acc = None
-    for page, h in zip(pages, bank):
-        fdl = page.view(Kp, S * C * M, B)
-        if acc is None:
-            acc = mac_kmajor(fdl, h)
-        else:
-            mac_kmajor(fdl, h, out=acc, accumulate=True)
-    O = acc.shape[0]
-    return acc.view(M, O // (2 * M), 2, Kp, B)
+    Y = mac_kmajor_pages([page.view(Kp, S * C * M, B) for page in pages], bank)
+    return Y.view(M, Y.shape[0] // (2 * M), 2, Kp, B)
 
 
 def paged_project(params: ConvParams, Ykm: torch.Tensor,

@@ -5,29 +5,38 @@
 Phases, each printing one line before the last:
   1. device: require CUDA, print the card's name and power limit
      (nvidia-smi), apply and check the strict fp32 precision policy;
-  2. build: build the mac_kmajor kernel (nvcc) and the native frame
-     assembler (g++) from their sources, both at once;
-  3. kernel: mac_kmajor against its plain PyTorch version on the card at the
-     paths' shapes (single-block K=520 R=40 O=4 at B=16384 and at the ring
-     pool's B=8192, and 3 accumulated pages R=32 O=32 at B=16384), with
-     errors, CUDA-event times of the kernel, the plain version and the one
-     PyTorch call of the same function, and the bound from bytes and FLOPs;
+  2. build: build the library of both MAC kernels, mac_kmajor and
+     mac_kmajor_pages (one nvcc, its ptxas registers and spills printed), and
+     the native frame assembler (g++) from their sources, both at once;
+  3. kernel: each kernel against its plain PyTorch version on the card at the
+     paths' shapes (mac_kmajor: single-block K=520 R=40 O=4 at B=16384 and
+     at the ring pool's B=8192, and 3 pages R=32 O=32 at B=16384 summed by
+     three launches with `accumulate`; mac_kmajor_pages: the same 3 pages in
+     one launch, and 13 pages R=128 at B=2048), with errors against the
+     plain version and float64, CUDA-event times of the kernel, the plain
+     version and the one PyTorch call of the same function, and the bound
+     from bytes and FLOPs; the fused kernel is timed in turns with the three
+     launches (three, fused, fused, three) and equals them bit for bit;
   4. bake: models.bake.bake at full width (B=16384 streams, S=2, T=512, a
      synthetic 4320-tap HRIR bank, a 10-filter EQ) over 32 blocks with
      blocks_per_step=8 and 1; the outputs are finite and non-silent, the two
      modes agree, 4 sampled lanes match a float64 reference (scipy
-     fftconvolve then sosfilt), and the kernel's launch count rose in both;
+     fftconvolve then sosfilt), and each mode launched its kernel once per
+     step (mac_kmajor_pages at M=8, mac_kmajor at M=1) and not the other;
   5. timing: the paged chain on device-resident input for 192 blocks, as
-     bench.py:measure times the JAX chain (for the record only);
+     bench.py:measure times the JAX chain, then one 8-block step alone in
+     CUDA-event time with its kernels from torch.profiler (for the record
+     only);
   6. pool: the serving pool's ring tier (StreamPool, 8192 lanes, 48 kHz)
      from a synthetic 14-channel HRIR WAV written and loaded back by the
      port's io.wav, through prepare_renderer, with the 10-filter EQ; 48
      rounds of ragged traffic (each lane fed with probability 0.75, so the
      masked step runs and lanes rejoin with debt), then full rounds
      (ring_all with one lane detached, ring_id after it re-attaches); 4
-     sampled lanes within 1e-5 of float64, the kernel launched, debt rolls
-     run;
-  7. pool_paged: the same at blocks_per_step=8 on 16384 lanes;
+     sampled lanes within 1e-5 of float64, mac_kmajor launched once per
+     round, debt rolls run;
+  7. pool_paged: the same at blocks_per_step=8 on 16384 lanes, with
+     mac_kmajor_pages launched once per round;
   8. pool_timing (after each tier): every lane fed one step per round
      (push_many, pump(max_rounds=1), pull_many), 64 blocks per lane per
      reading, best of 3 after two warm-up rounds; x_realtime, ms per round
@@ -75,10 +84,15 @@ BATCH, SPEAKERS, EARS, BLOCK, HRIR_TAPS = 16384, 2, 2, 512, 4320
 BLOCKS_PER_STEP = 8
 BAKE_BLOCKS = 32
 TIMED_BLOCKS = 192
+LONG_BANK = (13, 8, 2048)   # pages, speakers, lanes of the long-bank MAC case
 KERNEL_TOL = 1e-6   # rel-RMS, kernel vs plain version (fp32 reassociation)
 CHAIN_TOL = 1e-5    # rel-RMS, the BASELINE.md chain contract
 KERNEL_SOURCE = "airwave_tpu_torch/kernels/csrc/mac_kmajor.cu"
 KERNEL_REPLACES = "airwave_tpu/kernels/mac_kmajor.py:66"
+# The TPU kernel's paged use, the JAX step's _paged_mac, is what
+# mac_kmajor_pages replaces.
+PAGED_MAC_FUNCTION = "airwave_tpu/ops/upols.py:689"
+KERNELS = ("mac_kmajor", "mac_kmajor_pages")
 # The H100's published peaks (NVIDIA data sheet, SXM, at 700 W): HBM bytes
 # per second, and fp32 FLOP/s outside the tensor cores (the kernel's type).
 HBM_BYTES_PER_S = 3.35e12
@@ -203,14 +217,18 @@ def build_phase() -> None:
         log = kernel.result()
         assembler.result()
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if any(w in ln for w in ("entry function", "registers", "spill"))]
     phase("build", seconds=seconds, ptxas=ptxas)
 
 
 def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
-    """The kernel against its plain version at the paths' shapes, both also
+    """Each kernel against its plain version at the paths' shapes, both also
     against a float64 evaluation of the same contraction, and the one
-    PyTorch call that computes the same function (library_ms)."""
+    PyTorch call that computes the same function (library_ms). The fused
+    paged kernel is also timed in turns with the sum of one mac_kmajor
+    launch per page that it replaces (three launches at the headline
+    shape), and must equal that sum bit for bit."""
     Kp = upols.padded_bin_count(BLOCK)
     cases = []
 
@@ -218,44 +236,8 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
         return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
                             device=dev)
 
-    def single_block_case(B):
-        # R = S * P2 * 2 with P2 = 10 (9 partitions + 1), O = E * 2.
-        fdl, h = tensor((Kp, 40, B)), tensor((Kp, 4, 40))
-        return (f"single_block K={Kp} R=40 O=4 B={B}",
-                lambda: mk.mac_kmajor(fdl, h), lambda: mk.mac_kmajor_ref(fdl, h),
-                lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
-                lambda: torch.einsum("krb,kor->okb", fdl, h),
-                bound(4 * (fdl.numel() + h.numel() + 4 * Kp * B),
-                      2 * Kp * 40 * 4 * B))
-
-    def paged_case():
-        pages = [tensor((Kp, 32, BATCH)) for _ in range(3)]
-        hp = [tensor((Kp, 32, 32)) for _ in range(3)]
-        stacked, h_stacked = torch.stack(pages), torch.stack(hp)
-
-        def kern():
-            acc = mk.mac_kmajor(pages[0], hp[0])
-            for p, q in zip(pages[1:], hp[1:]):
-                mk.mac_kmajor(p, q, out=acc, accumulate=True)
-            return acc
-
-        def plain():
-            acc = mk.mac_kmajor_ref(pages[0], hp[0])
-            for p, q in zip(pages[1:], hp[1:]):
-                acc = acc + mk.mac_kmajor_ref(p, q)
-            return acc
-
-        return (f"paged 3 pages K={Kp} R=32 O=32 B={BATCH}", kern, plain,
-                lambda: sum(mk.mac_kmajor_ref(p.double(), q.double())
-                            for p, q in zip(pages, hp)),
-                lambda: torch.einsum("pkrb,pkor->okb", stacked, h_stacked),
-                bound(4 * (stacked.numel() + h_stacked.numel()
-                           + 32 * Kp * BATCH),
-                      2 * 3 * Kp * 32 * 32 * BATCH))
-
-    for make in (lambda: single_block_case(BATCH),
-                 lambda: single_block_case(POOL_LANES[1]), paged_case):
-        name, kern, plain, exact_fn, library, bnd = make()
+    def measure(kernel, name, kern, plain, exact_fn, library, bnd, ms=None,
+                **extra):
         got, ref = kern().double(), plain().double()
         exact = exact_fn()
         diff = got - ref
@@ -267,16 +249,72 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
         library_rel = ((library().double() - exact).pow(2).mean().sqrt()
                        / scale).item()
         del got, ref, exact, diff
-        case = dict(case=name, max_abs_err=max_abs, rel_rms=rel,
-                    rel_rms_vs_fp64=rel_exact,
+        case = dict(kernel=kernel, case=name, max_abs_err=max_abs,
+                    rel_rms=rel, rel_rms_vs_fp64=rel_exact,
                     plain_rel_rms_vs_fp64=plain_rel_exact,
                     library_rel_rms_vs_fp64=library_rel,
-                    ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 20),
-                    library_ms=cuda_ms(library, 20), **bnd)
+                    ms=cuda_ms(kern, 20) if ms is None else ms,
+                    plain_ms=cuda_ms(plain, 20),
+                    library_ms=cuda_ms(library, 20), **bnd, **extra)
         phase("kernel", **case)
         if not rel <= KERNEL_TOL:
             raise AssertionError(f"{name}: rel-RMS {rel} > {KERNEL_TOL}")
         cases.append(case)
+        torch.cuda.empty_cache()
+
+    for B in (BATCH, POOL_LANES[1]):
+        # R = S * P2 * 2 with P2 = 10 (9 partitions + 1), O = E * 2.
+        fdl, h = tensor((Kp, 40, B)), tensor((Kp, 4, 40))
+        measure("mac_kmajor", f"single_block K={Kp} R=40 O=4 B={B}",
+                lambda: mk.mac_kmajor(fdl, h), lambda: mk.mac_kmajor_ref(fdl, h),
+                lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
+                lambda: torch.einsum("krb,kor->okb", fdl, h),
+                bound(4 * (fdl.numel() + h.numel() + 4 * Kp * B),
+                      2 * Kp * 40 * 4 * B))
+        del fdl, h
+
+    # Pages R = S*2*M, O = M*E*2 at M = 8: the headline's 3 pages at S = 2,
+    # and a long 8-speaker bank, whose page bank is 16 KB per bin.
+    M = BLOCKS_PER_STEP
+    n_long, s_long, b_long = LONG_BANK
+    for n, R, B in ((3, SPEAKERS * 2 * M, BATCH), (n_long, s_long * 2 * M, b_long)):
+        O = M * EARS * 2
+        pages = [tensor((Kp, R, B)) for _ in range(n)]
+        bank = tensor((n, Kp, O, R))
+        stacked = torch.stack(pages)  # for the one library call only
+
+        def per_page():
+            acc = mk.mac_kmajor(pages[0], bank[0])
+            for p, h in zip(pages[1:], bank[1:]):
+                mk.mac_kmajor(p, h, out=acc, accumulate=True)
+            return acc
+
+        def fused():
+            return mk.mac_kmajor_pages(pages, bank)
+
+        shape = f"{n} pages K={Kp} R={R} O={O} B={B}"
+        equal = torch.equal(fused(), per_page())
+        diff = (fused() - per_page()).abs().max().item()
+        # In turns: per-page launches, fused, fused, per-page launches.
+        turns = [cuda_ms(f, 20) for f in (per_page, fused, fused, per_page)]
+        args = (lambda: mk.mac_kmajor_pages_ref(pages, bank),
+                lambda: sum(mk.mac_kmajor_ref(p.double(), h.double())
+                            for p, h in zip(pages, bank)),
+                lambda: torch.einsum("pkrb,pkor->okb", stacked, bank),
+                bound(4 * (n * Kp * R * B + bank.numel() + O * Kp * B),
+                      2 * n * Kp * R * O * B))
+        if n == 3:
+            measure("mac_kmajor", f"paged {shape}", per_page, *args)
+        measure("mac_kmajor_pages", f"paged fused {shape}", fused, *args,
+                ms=(turns[1] + turns[2]) / 2, ms_turns=turns[1:3],
+                per_page_launches_ms=(turns[0] + turns[3]) / 2,
+                per_page_launches_ms_turns=[turns[0], turns[3]],
+                equals_per_page_launches=equal,
+                max_abs_diff_per_page_launches=diff)
+        if not equal:
+            raise AssertionError(f"{shape}: the fused kernel differs from one "
+                                 f"launch per page by up to {diff}")
+        del pages, bank, stacked
         torch.cuda.empty_cache()
     return cases
 
@@ -321,7 +359,7 @@ def bake_phase(rng: np.random.Generator, dev: torch.device) -> dict:
         y, state = bake(hrir, x, SAMPLE_RATE, coeffs, preamp,
                         block_size=BLOCK, blocks_per_step=M, device=dev)
         seconds = time.perf_counter() - t0
-        launches[M] = mk.launch_count()
+        launches[M] = {name: mk.launch_count(name) for name in KERNELS}
         del state
         finite = bool(np.isfinite(y).all())
         rms = float(np.sqrt(np.mean(np.square(y, dtype=np.float64))))
@@ -333,8 +371,12 @@ def bake_phase(rng: np.random.Generator, dev: torch.device) -> dict:
             raise AssertionError(f"M={M}: output not finite or silent")
         if not max(lane_err) <= CHAIN_TOL:
             raise AssertionError(f"M={M}: lane rel-RMS {lane_err} > {CHAIN_TOL}")
-        if launches[M] <= 0:
-            raise AssertionError(f"M={M}: mac_kmajor was not launched")
+        used = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+        expected = {name: BAKE_BLOCKS // M if name == used else 0
+                    for name in KERNELS}
+        if launches[M] != expected:
+            raise AssertionError(f"M={M}: launches {launches[M]}, expected "
+                                 f"{expected} (one per step)")
         outs[M] = y
     modes = rel_rms(outs[BLOCKS_PER_STEP], outs[1])
     phase("bake_modes", rel_rms=modes)
@@ -386,12 +428,21 @@ def timing_phase(seed: int, dev: torch.device, smi: str) -> None:
             best = min(best, time.perf_counter() - t0)
             if not np.isfinite(host).all():
                 raise AssertionError("non-finite timing checksum")
+        peak = torch.cuda.max_memory_allocated()
+
+        def one_step():
+            nonlocal state
+            state, _ = chain(state, x)
+
+        step_ms = cuda_ms(one_step, 10)
+        profiled_ms, kernels, ops = device_breakdown(one_step)
     audio_seconds = BATCH * TIMED_BLOCKS * BLOCK / SAMPLE_RATE
     phase("timing", card=smi, batch=BATCH, blocks_per_step=M,
           blocks=TIMED_BLOCKS, n_pages=len(state.conv.pages),
           ms_per_block_step=best / TIMED_BLOCKS * 1e3,
-          x_realtime=audio_seconds / best,
-          peak_memory_bytes=torch.cuda.max_memory_allocated())
+          x_realtime=audio_seconds / best, peak_memory_bytes=peak,
+          device_step_ms=step_ms, device_step_profiled_ms=profiled_ms,
+          device_step_top_kernels=kernels, device_step_top_ops=ops)
 
 
 def hrir_wav(seed: int, directory: str) -> wavio.WAVData:
@@ -475,7 +526,7 @@ def pool_phase(label: str, wav, dev: torch.device, M: int,
     for _ in range(full - full // 2):  # every lane fed: the "_id" variant
         run(every)
     seconds = time.perf_counter() - t0
-    launches = mk.launch_count()
+    launches = {name: mk.launch_count(name) for name in KERNELS}
     stats = pool.stats()
     lane_err = [rel_rms(np.concatenate(outputs[b], -1),
                         reference_lane(hrir, np.concatenate(inputs[b], -1),
@@ -490,8 +541,11 @@ def pool_phase(label: str, wav, dev: torch.device, M: int,
           lane_rel_rms=lane_err)
     if not max(lane_err) <= CHAIN_TOL:
         raise AssertionError(f"{label}: lane rel-RMS {lane_err} > {CHAIN_TOL}")
-    if launches <= 0:
-        raise AssertionError(f"{label}: mac_kmajor was not launched")
+    used = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+    expected = {name: ragged + full if name == used else 0 for name in KERNELS}
+    if launches != expected:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expected} (one per round)")
     if stats["debt_rolls"] <= 0:
         raise AssertionError(f"{label}: no debt roll ran")
     want = {tier, f"{tier}_all", f"{tier}_id"}
@@ -645,21 +699,30 @@ def main() -> None:
     pool_retarget_phase(wav, dev, rng)
     phase("done", seconds=time.perf_counter() - t_start)
 
-    by_path = {"bake_paged": launches[BLOCKS_PER_STEP],
-               "bake_single_block": launches[1],
-               "pool_ring": launches["pool"],
-               "pool_paged": launches["pool_paged"]}
-    main_case = cases[-1]
-    print(json.dumps({"kernels": [{
-        "name": "mac_kmajor", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": sum(by_path.values()),
-        "launches_by_path": by_path,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "cases": cases,
-    }]}), flush=True)
+    paths = {"bake_paged": launches[BLOCKS_PER_STEP],
+             "bake_single_block": launches[1],
+             "pool_ring": launches["pool"],
+             "pool_paged": launches["pool_paged"]}
+    # Each kernel's headline case: the single block at B=16384 (bake M=1)
+    # and the fused 3 pages (bake M=8 and the paged pool).
+    entries = []
+    for name, function in (("mac_kmajor", None),
+                           ("mac_kmajor_pages", PAGED_MAC_FUNCTION)):
+        own = [c for c in cases if c["kernel"] == name]
+        main_case = own[0]
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        entries.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": KERNEL_REPLACES, "replaces_function": function,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in own),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"], "cases": own,
+        })
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -57,10 +57,50 @@ def test_kernel_rejects_non_contiguous(cuda_device):
         mk.mac_kmajor(fdl, torch.zeros((8, 4, 6), device=cuda_device))
 
 
+@pytest.mark.parametrize("n,K,R,O,B", [
+    (3, 520, 32, 32, 1000),   # the paged step's page, a ragged last tile
+    (1, 24, 8, 16, 300),      # one page, O = 16 (M = 4)
+    (13, 40, 128, 32, 129),   # a long bank: 13 pages, 16 KB of bank per bin
+    (2, 8, 12, 33, 5),        # generic O, rows not 16-byte aligned
+    (4, 16, 7, 20, 130),      # R % 4 != 0: the bank by 4-byte copies
+])
+def test_pages_kernel_matches_per_page_launches(cuda_device, n, K, R, O, B):
+    """The fused kernel equals one mac_kmajor launch per page summed with
+    accumulate=True, bit for bit (the same r-order FMAs and page-order
+    adds), and float64 within 1e-6; one launch, written into `out` too."""
+    rng = np.random.default_rng(n + K + R + O + B)
+    pages = [torch.tensor(rng.standard_normal((K, R, B), dtype=np.float32),
+                          device=cuda_device) for _ in range(n)]
+    bank = torch.tensor(rng.standard_normal((n, K, O, R), dtype=np.float32),
+                        device=cuda_device)
+    mk.reset_launch_count()
+    got = mk.mac_kmajor_pages(pages, bank)
+    torch.cuda.synchronize()
+    assert mk.launch_count("mac_kmajor_pages") == 1
+    acc = mk.mac_kmajor(pages[0], bank[0])
+    for page, h in zip(pages[1:], bank[1:]):
+        mk.mac_kmajor(page, h, out=acc, accumulate=True)
+    assert torch.equal(got, acc)
+    out = torch.full((O, K, B), 7.0, device=cuda_device)
+    assert mk.mac_kmajor_pages(pages, bank, out=out) is out
+    assert torch.equal(out, got)
+    exact = mk.mac_kmajor_pages_ref([p.double() for p in pages],
+                                    bank.double()).cpu().numpy()
+    assert rel_rms(got.cpu().numpy(), exact) <= 1e-6
+
+
+def test_pages_kernel_rejects_non_contiguous(cuda_device):
+    pages = [torch.zeros((8, 6, 5), device=cuda_device) for _ in range(2)]
+    pages[1] = torch.zeros((8, 5, 6), device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.mac_kmajor_pages(pages, torch.zeros((2, 8, 4, 6), device=cuda_device))
+
+
 @pytest.mark.parametrize("M", [1, 4])
 def test_bake_on_card_matches_cpu(cuda_device, M):
-    """The whole bake on the card (kernel launched) equals the CPU bake
-    (plain version) at a tiny size, batch not a multiple of the CTA width."""
+    """The whole bake on the card equals the CPU bake (plain versions) at a
+    tiny size, batch not a multiple of the CTA width. Each step launches one
+    kernel: mac_kmajor_pages at M > 1 (all pages fused), mac_kmajor at 1."""
     rng = np.random.default_rng(M)
     hrir = (rng.standard_normal((2, 2, 300)) * 0.3).astype(np.float32)
     x = (rng.standard_normal((5, 2, 9 * 64 + 7)) * 0.4).astype(np.float32)
@@ -68,7 +108,11 @@ def test_bake_on_card_matches_cpu(cuda_device, M):
     mk.reset_launch_count()
     y_gpu, state = bake(hrir, x, 48_000.0, coeffs, preamp, block_size=64,
                         blocks_per_step=M, device=cuda_device)
-    assert mk.launch_count() > 0
+    steps = -(-x.shape[-1] // (64 * M))
+    used, unused = (("mac_kmajor_pages", "mac_kmajor") if M > 1
+                    else ("mac_kmajor", "mac_kmajor_pages"))
+    assert mk.launch_count(used) == steps
+    assert mk.launch_count(unused) == 0
     y_cpu, _ = bake(hrir, x, 48_000.0, coeffs, preamp, block_size=64,
                     blocks_per_step=M, device="cpu")
     assert rel_rms(y_gpu, y_cpu) <= 1e-6
@@ -116,10 +160,11 @@ def _preset(gain):
 
 @pytest.mark.parametrize("M", [1, 2])
 def test_pool_on_card_matches_cpu_pool(cuda_device, M):
-    """The serving pool on the card (kernel launched, pinned staging,
-    deferred delivery) against the same pool on the CPU, at 5 lanes (not a
-    multiple of the kernel's 256-lane tile), with ragged traffic, a
-    retarget and a detach and re-attach."""
+    """The serving pool on the card (pinned staging, deferred delivery)
+    against the same pool on the CPU, at 5 lanes (not a multiple of the
+    kernels' 256-lane tile), with ragged traffic, a retarget and a detach
+    and re-attach. Each round on the card launches one kernel:
+    mac_kmajor_pages on the paged tier, mac_kmajor on the ring."""
     T, lanes = 64, 5
     rng = np.random.default_rng(M)
     wav = WAVData(48_000.0, (rng.standard_normal((14, 300)) * 0.2).astype(
@@ -136,6 +181,7 @@ def test_pool_on_card_matches_cpu_pool(cuda_device, M):
     step = pools[0].step_frames
     outs = [[[] for _ in range(lanes)] for _ in pools]
     mk.reset_launch_count()
+    card_rounds = 0
     for rnd in range(40):
         if rnd == 12:
             for pool in pools:
@@ -154,11 +200,16 @@ def test_pool_on_card_matches_cpu_pool(cuda_device, M):
             np.float32)
         for pool, out in zip(pools, outs):
             pool.push_many(fed, chunks)
-            assert pool.pump() == (1 if len(fed) else 0)
+            rounds = pool.pump()
+            assert rounds == (1 if len(fed) else 0)
+            card_rounds += rounds if pool is pools[0] else 0
             y = pool.pull_many(fed, step)
             for j, lane in enumerate(fed):
                 out[lane].append(y[j])
-    assert mk.launch_count() > 0
+    used, unused = (("mac_kmajor_pages", "mac_kmajor") if M > 1
+                    else ("mac_kmajor", "mac_kmajor_pages"))
+    assert card_rounds > 0 and mk.launch_count(used) == card_rounds
+    assert mk.launch_count(unused) == 0
     assert pools[0].stats()["debt_rolls"] > 0
     for a, b in zip(*outs):
         assert rel_rms(np.concatenate(a, -1), np.concatenate(b, -1)) <= 1e-5
