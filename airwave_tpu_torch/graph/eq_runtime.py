@@ -15,8 +15,9 @@ blend); this class reproduces the reference's control protocol
   - `reset` is deferred to the next block boundary
 
 The state machine is the reference's host code, unchanged; only the
-cascade params are torch tensors, on the runtime's device. Snapshot and
-restore are not ported yet (ROADMAP Queue 1 item 13).
+cascade params are torch tensors, on the runtime's device. `snapshot` and
+`restore` checkpoint the render-side crossfade machine as definitions and
+designs, from which the cascades are rebuilt.
 """
 
 from __future__ import annotations
@@ -112,6 +113,69 @@ class EqualizerRuntime:
     @property
     def is_transitioning(self) -> bool:
         return self.transition_from is not None
+
+    # --- checkpoint / resume -------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """The render-side crossfade machine: the active cascade, the one it
+        ramps from, the queued newest-wins target and the ramp clock.
+        Control-plane transients (an unobserved publication, the retirement
+        slots) are not captured: like in-flight audio they re-establish on
+        the next control action. Definitions and designs are stored, not
+        params: `prepare` is deterministic, so restore rebuilds the same
+        cascades."""
+        def pack(p: Optional[PreparedEq]):
+            # The design is packed too: a PreparedEq built directly (no
+            # definition, custom params through publish()) has nothing else
+            # to be rebuilt from and must not come back as unity.
+            if p is None:
+                return None
+            if (p.definition is None and p is not self.unity
+                    and p.design == ((), ())):
+                raise ValueError(
+                    "cannot snapshot a definition-less PreparedEq with no "
+                    "design: construct targets via prepare() or carry the "
+                    "(preamp, coeffs) design"
+                )
+            return ("prepared", p.definition, p.design)
+
+        return {
+            "active": pack(self.active),
+            "transition_from": pack(self.transition_from),
+            "pending": pack(self.pending_target),
+            "samples_into_transition": self._samples_into_transition,
+            "reset_requested": self._reset_requested,
+        }
+
+    def restore(self, snap: dict) -> None:
+        def make(item) -> Optional[PreparedEq]:
+            if item is None:
+                return None
+            _, definition, *rest = item
+            if definition is not None:
+                return self.prepare(definition)
+            design = rest[0] if rest else self.unity.design
+            if tuple(design) == tuple(self.unity.design):
+                return self.unity
+            # A definition-less custom cascade (published directly): its
+            # params are rebuilt from the packed design.
+            preamp, coeffs = design
+            params = eq_block.make_eq_params(coeffs, preamp, self.block_size,
+                                             self.state_dim,
+                                             device=self.device)
+            return PreparedEq(params, None, self.sample_rate, (preamp, coeffs))
+
+        self.active = make(snap["active"]) or self.unity
+        self.transition_from = make(snap["transition_from"])
+        self.pending_target = make(snap["pending"])
+        self._samples_into_transition = int(snap["samples_into_transition"])
+        self._reset_requested = bool(snap["reset_requested"])
+        # A fresh control plane: nothing published, observed or retired.
+        self.observed_target = None
+        self._published = None
+        self._audio_thread_target = None
+        self._retired = None
+        self._pending_retirement = None
 
     # --- render-side protocol (called by the engine per block) -------------
 

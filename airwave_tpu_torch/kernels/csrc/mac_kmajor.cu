@@ -83,9 +83,17 @@
 //     to whole stages (fmaf(0, 0, p) == p; only a -0 partial turns +0);
 //   - ragged shapes in the same kernel: rows take bulk copies when
 //     B % 4 == 0 and the pages are 16-byte aligned, else 4-byte cp.async by
-//     the producer's 32 lanes; lanes past B are never stored. O = 32 takes
-//     one pass over the pages; any other O takes 16 columns per pass
-//     (re-reading the pages), padded with zero columns.
+//     the producer's 32 lanes; lanes past B are never stored. An O that is
+//     a multiple of 32 takes 32 columns per pass over the pages (one pass at
+//     the steady O = 32, two at a hot-swap round's dual-bank O = 64); any
+//     other O takes 16 columns per pass (re-reading the pages), padded with
+//     zero columns.
+//
+// The single-block kernel has fixed instances for the steady O = 4, the
+// dual-bank O = 8 of a hot-swap round and the paged O = 32; any other O runs
+// the generic kernel, which takes the columns 4 at a time and re-reads the
+// CTA's rows once per 4 columns. Every instance keeps each column's fmaf
+// chain in r order, so all routes agree bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -348,7 +356,7 @@ __device__ __forceinline__ void mac_stage(float (&part)[4][OCT],
 // released. The consumer warps wait for a stage, multiply it and release
 // it. Each consumer thread holds 4 adjacent lanes x OCT columns: per row one
 // float4 of lanes and OCT/4 float4 of columns feed 4 * OCT FMAs. A pass over
-// the pages covers OCP = kColGroups * OCT columns (all of O = 32 and O = 16);
+// the pages covers OCP = kColGroups * OCT columns (all of O = 32 or 16);
 // group cg (warp-uniform, so bank reads stay broadcasts) takes columns
 // cg * OCT onwards of the pass. Both roles count stages (it) and page banks
 // (pg) over all work items and passes: the k-th use of a ring slot or bank
@@ -515,25 +523,36 @@ cudaError_t launch_pages(const PagePtrs& pages, const float* bank, float* out,
   return cudaGetLastError();
 }
 
-// Columns per pass over the pages: all of O = 32 and O = 16, else 16.
-int pages_columns(int O) { return O == 32 ? O : kColGroups * 4; }
+// Columns per pass over the pages: 32 for a multiple of 32, else 16.
+// `columns` 16 or 32 forces one of the two instances (the A/B of a dispatch
+// change); 0 picks by O.
+int pages_columns(int O, int columns) {
+  if (columns != 0) return columns;
+  return O % 32 == 0 ? 32 : kColGroups * 4;
+}
 
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) and returns
 // cudaGetLastError() as an int: 0 means the launch was accepted. The caller
-// validates shapes, dtypes, contiguity and the shared-memory size.
+// validates shapes, dtypes, contiguity and the shared-memory size. `generic`
+// nonzero runs the generic kernel whatever O is (the A/B of a dispatch
+// change).
 extern "C" int airwave_mac_kmajor(const float* fdl, const float* h, float* out,
                                   int K, int R, int B, int O, int accumulate,
-                                  int device, void* stream) {
+                                  int generic, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((B + kThreads - 1) / kThreads, K);
   const size_t smem = static_cast<size_t>(O) * R * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (O) {
+  switch (generic ? 0 : O) {
     case 4:
       mac_kmajor_fixed<4><<<grid, kThreads, smem, s>>>(fdl, h, out, K, R, B,
+                                                       accumulate);
+      break;
+    case 8:
+      mac_kmajor_fixed<8><<<grid, kThreads, smem, s>>>(fdl, h, out, K, R, B,
                                                        accumulate);
       break;
     case 32:
@@ -550,17 +569,22 @@ extern "C" int airwave_mac_kmajor(const float* fdl, const float* h, float* out,
 
 // Dynamic shared memory of one mac_kmajor_pages CTA for these R and O; the
 // caller checks it against the card's opt-in limit.
-extern "C" long long airwave_mac_kmajor_pages_smem(int R, int O) {
-  return static_cast<long long>(pages_smem_bytes(R, pages_columns(O)));
+extern "C" long long airwave_mac_kmajor_pages_smem(int R, int O,
+                                                    int columns) {
+  return static_cast<long long>(pages_smem_bytes(R, pages_columns(O, columns)));
 }
 
 // pages: n (1..32) device pointers to [K, R, B]; launches on `stream` and
 // returns cudaGetLastError() as an int, as airwave_mac_kmajor does.
+// `columns` is 0 (by O), 16 or 32, as pages_columns takes it.
 extern "C" int airwave_mac_kmajor_pages(const float* const* pages, int n,
                                         const float* bank, float* out, int K,
-                                        int R, int B, int O, int device,
-                                        void* stream) {
+                                        int R, int B, int O, int columns,
+                                        int device, void* stream) {
   if (n < 1 || n > kMaxPages) return static_cast<int>(cudaErrorInvalidValue);
+  if (columns != 0 && columns != 16 && columns != 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   PagePtrs p{};
@@ -571,7 +595,7 @@ extern "C" int airwave_mac_kmajor_pages(const float* const* pages, int n,
   }
   const int out_vec = B % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pages_columns(O) == 32) {
+  if (pages_columns(O, columns) == 32) {
     err = launch_pages<8>(p, bank, out, n, K, R, B, O, rows_bulk, out_vec, s);
   } else {
     err = launch_pages<4>(p, bank, out, n, K, R, B, O, rows_bulk, out_vec, s);

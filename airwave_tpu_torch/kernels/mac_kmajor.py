@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 
 import torch
 
@@ -35,17 +36,24 @@ _MAX_GRID_Y = 65535          # one grid row per bin
 MAX_PAGES = 32               # page pointers mac_kmajor_pages passes by value
 
 _launches = {"mac_kmajor": 0, "mac_kmajor_pages": 0}
+_launches_by_columns: Counter = Counter()  # (kernel, O) -> launches
 
 
-def launch_count(kernel: str = "mac_kmajor") -> int:
-    """Launches of `kernel` since the last reset_launch_count()."""
-    return _launches[kernel]
+def launch_count(kernel: str = "mac_kmajor",
+                 columns: "int | None" = None) -> int:
+    """Launches of `kernel` since the last reset_launch_count(); with
+    `columns`, only its launches at that output width O (a hot-swap round
+    doubles the steady O)."""
+    if columns is None:
+        return _launches[kernel]
+    return _launches_by_columns[kernel, columns]
 
 
 def reset_launch_count() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch counts to 0."""
     for name in _launches:
         _launches[name] = 0
+    _launches_by_columns.clear()
 
 
 def mac_kmajor_ref(fdl: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -66,13 +74,13 @@ def mac_kmajor_pages_ref(pages, bank: torch.Tensor) -> torch.Tensor:
 def _library():
     lib, log = _build.load(SOURCE)
     fn = lib.airwave_mac_kmajor
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.airwave_mac_kmajor_pages
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.airwave_mac_kmajor_pages_smem.argtypes = [ctypes.c_int] * 2
+    lib.airwave_mac_kmajor_pages_smem.argtypes = [ctypes.c_int] * 3
     lib.airwave_mac_kmajor_pages_smem.restype = ctypes.c_longlong
     lib.airwave_cuda_error_string.argtypes = [ctypes.c_int]
     lib.airwave_cuda_error_string.restype = ctypes.c_char_p
@@ -118,21 +126,26 @@ def _check_contiguous(**tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_launch(lib, code, name):
+def _check_launch(lib, code, name, O):
     if code != 0:
         msg = lib.airwave_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (cuda error {code})")
     _launches[name] += 1
+    _launches_by_columns[name, O] += 1
 
 
 def mac_kmajor(fdl: torch.Tensor, h: torch.Tensor,
                out: "torch.Tensor | None" = None,
-               accumulate: bool = False) -> torch.Tensor:
+               accumulate: bool = False, *, generic: bool = False
+               ) -> torch.Tensor:
     """fdl [K, R, B], h [K, O, R] -> [O, K, B], all float32.
 
     With `out` the result is written there; with accumulate=True it is
     added to what `out` holds (one launch per page summing pages this way
-    is what mac_kmajor_pages replaces, and its baseline on the card)."""
+    is what mac_kmajor_pages replaces, and its baseline on the card).
+    generic=True runs the any-O kernel in place of an O-specific instance
+    (the A/B baseline of the dispatch; the results are bit for bit the
+    same)."""
     K, R, B, O = _check(fdl, h, out, accumulate)
     if fdl.device.type == "cpu":
         y = mac_kmajor_ref(fdl, h)
@@ -153,9 +166,9 @@ def mac_kmajor(fdl: torch.Tensor, h: torch.Tensor,
     stream = torch.cuda.current_stream(fdl.device).cuda_stream
     code = lib.airwave_mac_kmajor(
         fdl.data_ptr(), h.data_ptr(), out.data_ptr(), K, R, B, O,
-        int(accumulate), fdl.device.index or 0, stream,
+        int(accumulate), int(generic), fdl.device.index or 0, stream,
     )
-    _check_launch(lib, code, "mac_kmajor")
+    _check_launch(lib, code, "mac_kmajor", O)
     return out
 
 
@@ -188,10 +201,18 @@ def _check_pages(pages, bank, out):
 
 
 def mac_kmajor_pages(pages, bank: torch.Tensor,
-                     out: "torch.Tensor | None" = None) -> torch.Tensor:
+                     out: "torch.Tensor | None" = None, *,
+                     columns: "int | None" = None) -> torch.Tensor:
     """pages n x [K, R, B], bank [n, K, O, R] -> [O, K, B], all float32:
     every page's contraction summed in page order, in one kernel launch on
-    the card. The pages stay separate tensors (no stacking copy)."""
+    the card. The pages stay separate tensors (no stacking copy).
+
+    `columns` (16 or 32) forces the kernel instance that takes that many
+    output columns per pass over the pages; None picks 32 for an O that is
+    a multiple of 32, else 16 (the A/B baseline of the dispatch; the
+    results are bit for bit the same)."""
+    if columns not in (None, 16, 32):
+        raise ValueError(f"columns must be None, 16 or 32, got {columns}")
     K, R, B, O = _check_pages(pages, bank, out)
     dev = bank.device
     if dev.type == "cpu":
@@ -206,7 +227,7 @@ def mac_kmajor_pages(pages, bank: torch.Tensor,
     if not (K > 0 and B > 0 and R > 0 and O > 0):
         raise ValueError(f"unsupported shape K={K} R={R} B={B} O={O}")
     lib, _ = _library()
-    smem = lib.airwave_mac_kmajor_pages_smem(R, O)
+    smem = lib.airwave_mac_kmajor_pages_smem(R, O, columns or 0)
     if smem > _MAX_OPTIN_SMEM_BYTES:
         raise ValueError(f"R={R} O={O} needs {smem} B of shared memory per "
                          f"CTA, over the card's {_MAX_OPTIN_SMEM_BYTES}")
@@ -214,7 +235,7 @@ def mac_kmajor_pages(pages, bank: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.airwave_mac_kmajor_pages(
         ptrs, len(pages), bank.data_ptr(), out.data_ptr(), K, R, B, O,
-        dev.index or 0, stream,
+        columns or 0, dev.index or 0, stream,
     )
-    _check_launch(lib, code, "mac_kmajor_pages")
+    _check_launch(lib, code, "mac_kmajor_pages", O)
     return out

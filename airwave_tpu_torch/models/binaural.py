@@ -7,16 +7,26 @@ Port of the chain steps of airwave_tpu/models/binaural.py: per step,
 
 spatial (HRIR convolution) then EQ, in that fixed order. BinauralChain
 holds the params and everything derived from them as module buffers, and
-its forward is the chain step.
+its forward is the chain step. BinauralEngine is the live engine: it owns
+one batch's carry, the EQ runtime and the crossfaded HRIR hot-swap, and
+steps one block at a time from numpy.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from airwave_tpu_torch.config import DEFAULT_CONFIG, AirwaveConfig
+from airwave_tpu_torch.device import (DEFAULT_DEVICE, apply_precision_policy,
+                                      resolve_device)
+from airwave_tpu_torch.graph.eq_runtime import EqualizerRuntime
+from airwave_tpu_torch.graph.renderer import RendererState
+from airwave_tpu_torch.io.apo import EqualizerDefinition
 from airwave_tpu_torch.ops import eq_block, upols
 
 
@@ -35,8 +45,10 @@ class ChainOperands(NamedTuple):
 
 
 def make_chain_operands(conv_params: upols.ConvParams,
-                        eq_to: eq_block.EqParams, blocks_per_step: int,
+                        eq_to: "eq_block.EqParams | None", blocks_per_step: int,
                         k_padded: int) -> ChainOperands:
+    """The operands of `conv_params` for M = blocks_per_step; eq_to is
+    folded into the paged synthesis and not read at M = 1."""
     M = int(blocks_per_step)
     if M > 1:
         return ChainOperands(
@@ -63,10 +75,17 @@ def chain_step_fn(
     eq_enabled: bool,
     eq_crossfading: bool = True,
     operands: "ChainOperands | None" = None,
+    xfade_ramp: "torch.Tensor | None" = None,
 ):
     """x [B, S, T] -> (state', y [B, 2, T]). Spatial THEN eq (fixed order).
     With spatial disabled, stereo input passes through and mono is
     duplicated.
+
+    `xfade_ramp` [T] (with conv_params = upols.xfade_conv_params(old, new)
+    and operands built from them) runs one block of a crossfaded HRIR
+    hot-swap: the dual bank's halves blend per sample BEFORE the EQ, so the
+    EQ state is driven by the blended signal, as a physical time-varying
+    filter would drive it.
 
     The spatial stage writes state.conv's delay line IN PLACE
     (upols.conv_step), unlike the functional reference: the state passed in
@@ -76,6 +95,8 @@ def chain_step_fn(
     if spatial_enabled:
         bank, synth = (operands.bank, operands.synth) if operands else (None, None)
         conv_state, y = upols.conv_step(conv_params, conv_state, x, bank, synth)
+        if xfade_ramp is not None:
+            y = upols.xfade_blend(y, xfade_ramp)
     elif x.shape[1] >= 2:
         y = x[:, :2, :]
     else:
@@ -189,3 +210,207 @@ class BinauralChain(nn.Module):
             eq_enabled=self.eq_enabled, eq_crossfading=eq_crossfading,
             operands=self.operands,
         )
+
+
+class BinauralEngine:
+    """The live engine: one batch's device carry, the EQ runtime and the
+    HRIR hot-swap, stepped one block at a time (process_block, numpy in and
+    out) on `device` (the card by default; pass device="cpu" for the CPU).
+
+    Port of airwave_tpu/models/binaural.py:BinauralEngine, the analog of
+    the reference's AudioEffectGraph + HRIRManager render path, batched.
+    Renderer swaps crossfade over the preserved history (set_renderer); EQ
+    retargets crossfade through the EqualizerRuntime protocol. The operands
+    derived from the active bank, and from the dual bank of a fade, are
+    built once per bank change (ChainOperands), never per block."""
+
+    def __init__(
+        self,
+        batch: int,
+        sample_rate: float,
+        block_size: int = 512,
+        renderer: Optional[RendererState] = None,
+        config: AirwaveConfig = DEFAULT_CONFIG,
+        device: "torch.device | str" = DEFAULT_DEVICE,
+    ) -> None:
+        self.device = resolve_device(device)
+        apply_precision_policy()
+        self.batch = int(batch)
+        self.sample_rate = float(sample_rate)
+        self.block_size = int(block_size)
+        self.config = config
+        self._k_padded = upols.padded_bin_count(self.block_size)
+        self.eq_runtime = EqualizerRuntime(sample_rate, block_size,
+                                           config.eq_state_dim, config,
+                                           device=self.device)
+        self._eq_active = False
+        self.renderer: Optional[RendererState] = None
+        self._state: Optional[ChainState] = None
+        # The active bank (the renderer's params, zero-padded to the carry's
+        # partition count after a crossfaded shorter-HRIR swap) with its
+        # operands, and the crossfade in flight: the dual bank, its
+        # operands and the per-block ramp segments still to play.
+        self._conv_params: Optional[upols.ConvParams] = None
+        self._operands: Optional[ChainOperands] = None
+        self._xfade_params: Optional[upols.ConvParams] = None
+        self._xfade_operands: Optional[ChainOperands] = None
+        self._xfade_segments: list = []
+        if renderer is not None:
+            self.set_renderer(renderer)
+        else:
+            self._alloc_state(num_speakers=2, partitions=1)
+
+    # --- control path ------------------------------------------------------
+
+    def _alloc_state(self, num_speakers: int, partitions: int) -> None:
+        eq = (self._state.eq if self._state is not None
+              else eq_block.make_eq_state(self.batch, 2,
+                                          self.config.eq_state_dim,
+                                          self.device))
+        self._state = ChainState(
+            conv=upols.make_conv_state(self.batch, num_speakers, partitions,
+                                       self.block_size, self.device),
+            eq=eq)
+
+    def _clear_xfade(self) -> None:
+        self._xfade_params = None
+        self._xfade_operands = None
+        self._xfade_segments = []
+
+    @torch.inference_mode()
+    def set_renderer(self, renderer: Optional[RendererState],
+                     crossfade: bool = True) -> bool:
+        """Hot-swap the HRIR renderer. Returns True when the swap
+        crossfaded, False when the history was reset.
+
+        With crossfade=True a swap onto the same speakers whose bank fits
+        the carry (a shorter bank is zero-padded onto it) keeps the whole
+        conv history, and the next 20 ms of output blend old -> new per
+        sample: the ideal time-varying filter (upols.xfade_conv_params).
+        crossfade=False, no prior renderer, or a bank longer than the carry
+        resets the history (the reference's fresh-engine semantics) and
+        reallocates the carry when its shape changes. A second swap
+        mid-fade is newest-wins: the fade restarts toward the newest bank
+        FROM the blend the output currently hears, the interrupted fade's
+        banks lerped at the ramp position the next sample would have used
+        (upols.lerp_bank), so the output filter does not step."""
+        old = self.renderer
+        old_params = self._conv_params
+        self.renderer = renderer
+        if renderer is None:
+            self._conv_params = self._operands = None
+            self._clear_xfade()
+            return False
+        new_params = upols.ConvParams(
+            *(t.to(self.device) for t in renderer.conv_params))
+        if (crossfade and old is not None and old_params is not None
+                and old.num_speakers == renderer.num_speakers
+                and renderer.partition_count <= old_params.partition_count):
+            if self._xfade_params is not None and self._xfade_segments:
+                r0 = float(self._xfade_segments[0][0])
+                E = old_params.num_ears
+                prev_old = self._xfade_params._replace(
+                    Gflip2=self._xfade_params.Gflip2[:, :E])
+                old_params = upols.lerp_bank(prev_old, old_params, r0)
+            self._conv_params = upols.pad_conv_params(
+                new_params, old_params.partition_count)
+            self._operands = make_chain_operands(self._conv_params, None, 1,
+                                                 self._k_padded)
+            self._xfade_params = upols.xfade_conv_params(old_params,
+                                                         self._conv_params)
+            self._xfade_operands = make_chain_operands(
+                self._xfade_params, None, 1, self._k_padded)
+            T = self.block_size
+            fade = self.config.transition_length(self.sample_rate)
+            full = torch.from_numpy(
+                upols.xfade_ramp(fade, fade + (-fade) % T)).to(self.device)
+            self._xfade_segments = list(full.split(T))
+            return True
+        self._conv_params = new_params
+        self._operands = make_chain_operands(new_params, None, 1,
+                                             self._k_padded)
+        self._clear_xfade()
+        if (old is None or self._state is None
+                or (old.num_speakers, old_params.partition_count)
+                != (renderer.num_speakers, renderer.partition_count)):
+            self._alloc_state(renderer.num_speakers,
+                              renderer.partition_count)
+        else:
+            self._state = ChainState(conv=upols.conv_reset(self._state.conv),
+                                     eq=self._state.eq)
+        return False
+
+    @property
+    def spatial_ready(self) -> bool:
+        return self.renderer is not None
+
+    def set_equalizer(self, definition: Optional[EqualizerDefinition]) -> None:
+        """Live retarget; the EQ stays in the chain for the unity ramp when
+        the definition is removed (ref AudioEffectGraph.swift:147-151)."""
+        self.eq_runtime.set_target(definition)
+        self._eq_active = True
+
+    def prepare_equalizer(self,
+                          definition: Optional[EqualizerDefinition]) -> None:
+        """Full (re)prepare; a None definition takes the EQ out of the
+        chain (ref AudioEffectGraph.swift:94-114)."""
+        self.eq_runtime.set_target(definition)
+        self._eq_active = definition is not None
+
+    def reset(self) -> None:
+        if self._state is not None:
+            self._state = ChainState(conv=upols.conv_reset(self._state.conv),
+                                     eq=self._state.eq)
+        # A zeroed history has nothing to blend: jump to the fade target.
+        self._clear_xfade()
+        self.eq_runtime.reset()
+
+    # --- render path ---------------------------------------------------------
+
+    @torch.inference_mode()
+    def process_block(self, x: np.ndarray) -> np.ndarray:
+        """x [B, S, T] float32 -> y [B, 2, T] float32 (one block)."""
+        x = np.asarray(x, np.float32)
+        if x.shape[0] != self.batch or x.shape[2] != self.block_size:
+            raise ValueError(f"block {x.shape}: expected [{self.batch}, S, "
+                             f"{self.block_size}]")
+        spatial = self.spatial_ready
+        if spatial and x.shape[1] != self.renderer.num_speakers:
+            raise ValueError(f"block {x.shape} has {x.shape[1]} channels, the "
+                             f"renderer {self.renderer.num_speakers} speakers")
+        # The engine is its own control thread: drain the retirement handoff
+        # every block, or the single-slot backpressure wedges every retarget
+        # after the second completed transition.
+        self.eq_runtime.drain_retired_states()
+        eq_state, p_from, p_to, _ = self.eq_runtime.begin_block(self._state.eq)
+        ramp = None
+        if spatial and self._xfade_segments:
+            conv_params, operands = self._xfade_params, self._xfade_operands
+            ramp = self._xfade_segments.pop(0)
+            if not self._xfade_segments:
+                self._xfade_params = self._xfade_operands = None
+        elif spatial:
+            conv_params, operands = self._conv_params, self._operands
+        else:
+            conv_params, operands = _dummy_conv_params(self.block_size), None
+        crossfading = (self.eq_runtime.is_transitioning
+                       or self.eq_runtime.pending_target is not None)
+        self._state, y = chain_step_fn(
+            conv_params, p_from, p_to, ChainState(self._state.conv, eq_state),
+            torch.from_numpy(x).to(self.device),
+            self.eq_runtime.transition_length, spatial, self._eq_active,
+            crossfading, operands, xfade_ramp=ramp)
+        self.eq_runtime.after_block(self.block_size)
+        # A copy: on the CPU the passthrough output is a view of x.
+        return y.to("cpu", copy=True).numpy()
+
+    @property
+    def state(self) -> ChainState:
+        return self._state
+
+
+@functools.lru_cache(maxsize=4)
+def _dummy_conv_params(block_size: int) -> upols.ConvParams:
+    """Placeholder params for the passthrough topology (never read)."""
+    return upols.make_conv_params(np.zeros((1, 2, 1), np.float32), block_size,
+                                  device="cpu")

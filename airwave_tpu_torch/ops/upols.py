@@ -468,9 +468,14 @@ def pad_conv_params(params: ConvParams, partitions: int) -> ConvParams:
     """Zero-pad a bank's partition count to `partitions` (tail zeros).
 
     The padded bank is the same filter (zero tail partitions convolve
-    nothing) on a larger delay-line shape. The single-profile pool calls it
-    with the bank's own count, where it returns the params unchanged; the
-    HRIR hot-swap that pads onto a larger carry is not ported yet."""
+    nothing) on a larger delay-line shape, so a shorter-HRIR preset can
+    hot-swap onto an existing carry without reallocating it (and, with
+    xfade_conv_params, without resetting it). The natural-order bank is
+    rebuilt from the stored flip-doubled planes, padded, and flipped and
+    doubled again. Padding keeps a lookahead zero tail (zeros extend
+    zeros); the caller checks divisibility for the paged step
+    (partitions % M). With the bank's own count the params come back
+    unchanged."""
     P2 = params.partition_count
     partitions = int(partitions)
     if partitions == P2:
@@ -485,3 +490,78 @@ def pad_conv_params(params: ConvParams, partitions: int) -> ConvParams:
     g_flip = g_nat.flip(2)
     return ConvParams(Gflip2=torch.cat([g_flip, g_flip], dim=2),
                       wf=params.wf, wi=params.wi)
+
+
+# --- HRIR hot-swap: the dual bank and the crossfade -------------------------
+
+
+def _check_same_bank_shape(old: ConvParams, new: ConvParams, what: str,
+                           hint: str = "") -> None:
+    if old.Gflip2.shape != new.Gflip2.shape:
+        raise ValueError(
+            f"{what} banks must share [S, E, partitions, K]: "
+            f"{tuple(old.Gflip2.shape)} vs {tuple(new.Gflip2.shape)}{hint}"
+        )
+
+
+def xfade_conv_params(old: ConvParams, new: ConvParams) -> ConvParams:
+    """Dual-bank params for a crossfaded HRIR hot-swap: the two banks
+    stacked on the ear axis (E -> 2E; ears [0, E) OLD, [E, 2E) NEW), with
+    `new`'s analysis and synthesis weights.
+
+    The delay line holds bank-independent input spectra, so a same-shape
+    swap keeps the whole input history, and every step variant runs the
+    dual bank unchanged: it reads the delay line once and emits y2
+    [..., 2E, T], whose halves xfade_blend mixes per sample. The MAC's
+    output columns double for the fade round (O = 2*E*Q single-block,
+    M*2*E*Q paged); the delay-line read does not."""
+    _check_same_bank_shape(old, new, "crossfade",
+                           " (pad_conv_params can grow the smaller one)")
+    return ConvParams(Gflip2=torch.cat([old.Gflip2, new.Gflip2], dim=1),
+                      wf=new.wf, wi=new.wi)
+
+
+def lerp_bank(old: ConvParams, new: ConvParams, t: float) -> ConvParams:
+    """Pointwise blend of two same-shape banks, (1-t)*old + t*new.
+
+    Convolution is linear in the bank, so the lerped bank renders the
+    blend of the two banks' outputs at ratio t: the frozen mid-point of an
+    interrupted crossfade, from which a second swap restarts its fade
+    (BinauralEngine.set_renderer) without a step in the output filter."""
+    _check_same_bank_shape(old, new, "lerp")
+    t = float(t)
+    return ConvParams(Gflip2=(1.0 - t) * old.Gflip2 + t * new.Gflip2,
+                      wf=new.wf, wi=new.wi)
+
+
+def xfade_ramp(fade: int, total: int) -> np.ndarray:
+    """Blend weights of one crossfade window: [total] float32 rising as
+    (t+1)/fade over the first `fade` samples (the EQ ramp's convention),
+    then holding 1.0."""
+    fade = max(1, int(fade))
+    r = (np.arange(total, dtype=np.float32) + 1.0) / float(fade)
+    return np.minimum(r, 1.0)
+
+
+def xfade_blend(y2: torch.Tensor, ramp: torch.Tensor,
+                lane_mask: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Mix a dual-bank step's halves: y2 [B, 2E, T] (or [B, M, 2E, T]) ->
+    [B, E, T] (or [B, M, E, T]), y = y_old*(1 - r) + y_new*r.
+
+    `ramp` is [T] for the single-block step, or [M*T] spanning the paged
+    round. `lane_mask` [B] bool selects the lanes that blend; the others
+    take the pure NEW half (lanes that already faded, or attached after
+    the swap)."""
+    E = y2.shape[-2] // 2
+    y_old, y_new = y2[..., :E, :], y2[..., E:, :]
+    r = ramp.to(y2.dtype)
+    if y2.dim() == 4:
+        r = r.reshape(1, y2.shape[1], 1, y2.shape[-1])
+    else:
+        r = r.reshape(1, 1, y2.shape[-1])
+    y = y_old * (1.0 - r) + y_new * r
+    if lane_mask is not None:
+        m = lane_mask.to(torch.bool).reshape((y2.shape[0],)
+                                             + (1,) * (y2.dim() - 1))
+        y = torch.where(m, y, y_new)
+    return y

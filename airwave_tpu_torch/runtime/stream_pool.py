@@ -24,6 +24,16 @@ the ramp crossfade per sample, a lane idle across the whole ramp hears the
 new target when it resumes, and a lane attaching mid-ramp hears the target
 directly.
 
+HRIR hot-swaps (set_renderer) keep every lane's conv history: the delay
+line holds bank-independent input spectra, so each lane's next rendered
+round runs the dual bank (upols.xfade_conv_params) and blends old -> new
+per sample before the EQ. The carry's partition count is tracked apart
+from the renderer's: a shorter bank is zero-padded onto the carry, and the
+lane-debt modulus stays the carry's. `snapshot` and `restore` checkpoint
+the carry with the host state that interprets it (debt, attached lanes,
+the EQ machine); `restore(..., resize=True)` maps a snapshot of another
+lane count onto this pool.
+
 Deliberate differences from the JAX pool:
   - No harvest buckets and no sentinel rows. XLA needed bucketed shapes to
     reuse compiled steps, and dropped the sentinel rows' scatter with
@@ -42,9 +52,8 @@ Deliberate differences from the JAX pool:
     built raises.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-profile groups (`profiles=`), the device mesh (`mesh=`), HRIR hot-swap
-(`set_renderer`, `prewarm(include_hotswap=True)`) and checkpointing
-(`snapshot`, `restore`, `state_like`).
+profile groups (`profiles=`, and so `set_renderer(..., group=g)` for a
+group other than 0) and the device mesh (`mesh=`).
 """
 
 from __future__ import annotations
@@ -69,8 +78,6 @@ from airwave_tpu_torch.ops import eq_block, upols
 RING_VARIANTS = ("ring", "ring_all", "ring_id")
 PAGED_VARIANTS = ("paged", "paged_all", "paged_id")
 
-_ROADMAP_HOTSWAP = "HRIR hot-swap (ROADMAP Queue 1 item 12)"
-_ROADMAP_SNAPSHOT = "pool snapshot/restore/resize (ROADMAP Queue 1 item 13)"
 _ROADMAP_GROUPS = "profile groups (ROADMAP Queue 1 item 14)"
 _ROADMAP_MESH = "multi-GPU pools (ROADMAP Queue 1 item 17)"
 
@@ -93,6 +100,35 @@ def _lane_mask(idx: torch.Tensor, batch: int) -> torch.Tensor:
                        device=idx.device).index_fill_(0, idx, True)
 
 
+def _map_carry(fn, state) -> PoolState:
+    """The pool carry with fn applied to each tensor leaf (duck-typed, so a
+    snapshot's carry written by the JAX pool, with numpy leaves, maps too).
+    The ring cursor stays a host integer, kept as an np.int32 as the JAX
+    carry holds it."""
+    conv = state.conv
+    if hasattr(conv, "pages"):
+        conv = upols.PagedConvState(pages=tuple(fn(p) for p in conv.pages))
+    else:
+        conv = upols.ConvState(fdl=fn(conv.fdl),
+                               write_pos=np.int32(np.asarray(conv.write_pos)))
+    eq = state.eq
+    return PoolState(conv, eq_block.EqState(
+        s_from=fn(eq.s_from), s_to=fn(eq.s_to), counter=fn(eq.counter)))
+
+
+def _carry_leaves(state: PoolState) -> list:
+    """(name, tensor) for each tensor of a pool carry, in a fixed order."""
+    conv = state.conv
+    named = ([(f"page {a}", p) for a, p in enumerate(conv.pages)]
+             if hasattr(conv, "pages") else [("fdl", conv.fdl)])
+    return named + list(zip(eq_block.EqState._fields, state.eq))
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    # A copy even on the CPU: the pool writes its carry in place.
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 def _where_lanes(mask: torch.Tensor, new: eq_block.EqState,
                  old: eq_block.EqState) -> eq_block.EqState:
     """Stepped lanes take the new EQ state, idle lanes keep theirs (the
@@ -110,7 +146,9 @@ def pool_step_body(conv_params: upols.ConvParams,
                    state: PoolState, blocks: torch.Tensor, idx: torch.Tensor,
                    transition_length: int, eq_enabled: bool,
                    eq_crossfading: bool, variant: str = "ring",
-                   operands: Optional[ChainOperands] = None):
+                   operands: Optional[ChainOperands] = None,
+                   xfade_ramp: "torch.Tensor | None" = None,
+                   xfade_mask: "torch.Tensor | None" = None):
     """One pool round: scatter the k harvested rows into the dense batch,
     step the (masked) chain, gather the harvested rows back.
 
@@ -124,13 +162,20 @@ def pool_step_body(conv_params: upols.ConvParams,
     the dense batch, so the scatter and gather are skipped too. The paged
     variants are the same three for the M-block tier (_pool_round_paged).
 
+    `xfade_ramp` [round frames] with `xfade_mask` [B] bool runs a hot-swap
+    round (StreamPool.set_renderer): conv_params is the dual bank
+    (upols.xfade_conv_params, ears [0, E) OLD and [E, 2E) NEW) over the
+    unchanged delay line, and masked lanes blend old -> new per sample
+    before the EQ; the other lanes take the pure new half.
+
     The ring step writes state.conv's delay line in place
     (upols.conv_step): the state passed in is consumed. `operands` are the
     bank-derived MAC and synthesis operands (built when not given)."""
     if variant in PAGED_VARIANTS:
         return _pool_round_paged(conv_params, eq_from, eq_to, state, blocks,
                                  idx, transition_length, eq_enabled,
-                                 eq_crossfading, variant, operands)
+                                 eq_crossfading, variant, operands,
+                                 xfade_ramp, xfade_mask)
     if variant not in RING_VARIANTS:
         raise ValueError(f"unknown pool step variant {variant!r}")
     conv_state, eq_state = state
@@ -143,6 +188,8 @@ def pool_step_body(conv_params: upols.ConvParams,
     bank, synth = (operands.bank, operands.synth) if operands else (None, None)
     conv_state, y = upols.conv_step(conv_params, conv_state, x, bank, synth,
                                     active_mask=mask)
+    if xfade_ramp is not None:
+        y = upols.xfade_blend(y, xfade_ramp, xfade_mask)
     if eq_enabled:
         new_eq, y = eq_block.eq_step(eq_from, eq_to, eq_state, y,
                                      transition_length, eq_crossfading)
@@ -154,14 +201,18 @@ def pool_step_body(conv_params: upols.ConvParams,
 
 def _pool_round_paged(conv_params, eq_from, eq_to, state, blocks, idx,
                       transition_length, eq_enabled, eq_crossfading,
-                      variant, operands=None):
+                      variant, operands=None, xfade_ramp=None,
+                      xfade_mask=None):
     """One multi-block round: blocks [k, S, M, T] -> y_rows [k, M, E, T].
 
     The spatial stage is the bake path's paged step. In steady state
     (eq_crossfading=False) the EQ's FIR and state drive are folded into the
     synthesis weights (eq_block.eq_folded_paged_round); during a ramp the
     plain synthesis runs and the M blocks go through eq_step in order.
-    "paged" preserves idle lanes by recycling their oldest page."""
+    A hot-swap round (xfade_ramp given) takes the plain path too: the
+    blended signal must drive the EQ, and the fold never materializes the
+    spatial output. "paged" preserves idle lanes by recycling their oldest
+    page."""
     conv_state, eq_state = state
     B = conv_state.pages[0].shape[-1]
     M = blocks.shape[2]
@@ -171,7 +222,7 @@ def _pool_round_paged(conv_params, eq_from, eq_to, state, blocks, idx,
     x = blocks if identity else _scatter_rows(blocks, idx, B)
     mask = _lane_mask(idx, B) if variant == "paged" else None
     bank = operands.bank if operands else None
-    if eq_enabled and not eq_crossfading:
+    if eq_enabled and not eq_crossfading and xfade_ramp is None:
         conv_state, new_eq, y = eq_block.eq_folded_paged_round(
             conv_params, eq_to, conv_state, eq_state, x, bank,
             operands.synth_folded if operands else None, active_mask=mask)
@@ -179,6 +230,8 @@ def _pool_round_paged(conv_params, eq_from, eq_to, state, blocks, idx,
         conv_state, y = upols.conv_step_paged(
             conv_params, conv_state, x, bank,
             operands.synth if operands else None, active_mask=mask)
+        if xfade_ramp is not None:
+            y = upols.xfade_blend(y, xfade_ramp, xfade_mask)
         new_eq = eq_state
         if eq_enabled:
             outs = []
@@ -261,23 +314,20 @@ class StreamPool:
                              f"{blocks_per_step}")
         self._check_renderer_lookahead(renderer)
         self.renderer = renderer
-        self._conv_params = upols.ConvParams(*(
-            t.to(self.device) for t in upols.pad_conv_params(
-                renderer.conv_params, renderer.partition_count)))
-        kp = upols.padded_bin_count(self.block_size)
-        M = self.blocks_per_step
-        if M > 1:
-            bank = upols.paged_bank(self._conv_params, M, kp)
-            # One full rotation of a lane's carry is the identity: n_pages
-            # rounds for the paged line, P2 cursor advances for the ring.
-            self._lane_cycle = renderer.partition_count // M
-        else:
-            bank = upols.single_block_bank(self._conv_params, kp)
-            self._lane_cycle = renderer.partition_count
-        self._bank = bank
-        self._synth = upols.project_weights(self._conv_params, kp)
-        self._folded = (None, None)  # (eq params, synthesis with them folded)
+        self._k_padded = upols.padded_bin_count(self.block_size)
+        # The carry's partition count. After a crossfaded shorter-HRIR swap
+        # the active bank is the renderer's zero-padded onto the unchanged
+        # carry, so this may exceed the renderer's own count.
+        self._bank_partitions = renderer.partition_count
+        self._rebuild_conv_params()
+        # The hot-swap crossfade in flight: the dual bank and its operands,
+        # and per lane whether its next rendered round still owes the fade.
+        self._xfade_params: Optional[upols.ConvParams] = None
+        self._xfade_operands: Optional[ChainOperands] = None
+        self._xfade_pending = np.zeros(self.max_streams, bool)
+        self._xfade_ramp: Optional[torch.Tensor] = None
 
+        M = self.blocks_per_step
         speakers = renderer.num_speakers
         # Rings hold at least two full steps so a lane can buffer the next
         # round while one is in flight.
@@ -310,10 +360,14 @@ class StreamPool:
         # in order and re-flush on pull. Serialized use never fills it.
         self._pending_out: Dict[int, deque] = {}
         frames = self.step_frames
+        # Each upload slot: the harvested rows, their lanes, and a fade
+        # round's lane mask (a staged copy: the host updates _xfade_pending
+        # right after the round is queued).
         self._uploads = [
             _HostSlot(self.device,
                       ((self.max_streams, speakers, frames), torch.float32),
-                      ((self.max_streams,), torch.int64))
+                      ((self.max_streams,), torch.int64),
+                      ((self.max_streams,), torch.bool))
             for _ in range(2)]
         self._downloads = [
             _HostSlot(self.device,
@@ -324,7 +378,30 @@ class StreamPool:
         self.blocks_rendered = 0
         self.render_errors = 0
         self.debt_rolls = 0
+        self.fade_rounds = 0
         self.variant_rounds: Counter = Counter()
+
+    def _mac_bank(self, params: upols.ConvParams) -> torch.Tensor:
+        if self._paged:
+            return upols.paged_bank(params, self.blocks_per_step,
+                                    self._k_padded)
+        return upols.single_block_bank(params, self._k_padded)
+
+    def _rebuild_conv_params(self) -> None:
+        """The active bank from the renderer's params zero-padded to the
+        CARRY's partition count, with everything derived from it: the MAC
+        operand, the synthesis weights, the folded synthesis (rebuilt at
+        the next round) and the lane-debt modulus."""
+        self._conv_params = upols.ConvParams(*(
+            t.to(self.device) for t in upols.pad_conv_params(
+                self.renderer.conv_params, self._bank_partitions)))
+        self._bank = self._mac_bank(self._conv_params)
+        self._synth = upols.project_weights(self._conv_params, self._k_padded)
+        self._folded = (None, None)  # (eq params, synthesis with them folded)
+        # One full rotation of a lane's carry is the identity: n_pages
+        # rounds for the paged line, P2 cursor advances for the ring.
+        M = self.blocks_per_step
+        self._lane_cycle = self._bank_partitions // M
 
     @property
     def step_frames(self) -> int:
@@ -352,15 +429,15 @@ class StreamPool:
 
     @torch.inference_mode()
     def _fresh_state(self) -> PoolState:
-        r = self.renderer
+        """A zeroed carry at the carry's partition count."""
+        S, P = self.renderer.num_speakers, self._bank_partitions
         if self._paged:
             conv = upols.make_conv_state_paged(
-                self.max_streams, r.num_speakers, r.partition_count,
-                self.block_size, self.blocks_per_step, self.device)
+                self.max_streams, S, P, self.block_size, self.blocks_per_step,
+                self.device)
         else:
-            conv = upols.make_conv_state(self.max_streams, r.num_speakers,
-                                         r.partition_count, self.block_size,
-                                         self.device)
+            conv = upols.make_conv_state(self.max_streams, S, P,
+                                         self.block_size, self.device)
         return PoolState(conv=conv, eq=eq_block.make_eq_state(
             self.max_streams, 2, self.config.eq_state_dim, self.device))
 
@@ -373,7 +450,7 @@ class StreamPool:
             params, synth_folded = self._folded
             if params is not eq_to:
                 synth_folded = upols.project_weights(
-                    self._conv_params, self._bank.shape[1],
+                    self._conv_params, self._k_padded,
                     eq_block.fold_post(eq_to))
                 self._folded = (eq_to, synth_folded)
         return ChainOperands(self._bank, self._synth, synth_folded)
@@ -391,14 +468,17 @@ class StreamPool:
         self._out.reset_stream(stream)
         # The device-row zeroing is deferred and batched (pump flushes it
         # before every round). A zeroed lane is rotation-invariant, so a
-        # fresh stream joins with no alignment debt.
+        # fresh stream joins with no alignment debt, and it owes no fade: a
+        # fresh history hears the active bank directly.
         self._reset_pending[stream] = True
         self._debt[stream] = 0
+        self._xfade_pending[stream] = False
         return stream
 
     def detach(self, stream: int) -> None:
         if self._attached.pop(stream, None):
             self._attached_mask[stream] = False
+            self._xfade_pending[stream] = False
             self._free.append(stream)
             self._pending_out.pop(stream, None)
             self.assembler.reset_stream(stream)
@@ -433,17 +513,242 @@ class StreamPool:
         self.eq_runtime.set_target(definition)
         self._eq_enabled = True
 
-    def set_renderer(self, renderer, group=None, crossfade=True):
-        raise NotImplementedError(f"{_ROADMAP_HOTSWAP} is not ported yet")
+    @torch.inference_mode()
+    def set_renderer(self, renderer: RendererState,
+                     group: Optional[int] = None,
+                     crossfade: bool = True) -> bool:
+        """HRIR hot-swap. Returns True when the swap crossfaded (history
+        kept), False when it reset.
 
-    def snapshot(self, materialize=True):
-        raise NotImplementedError(f"{_ROADMAP_SNAPSHOT} is not ported yet")
+        With crossfade=True a bank that fits the carry (partition count at
+        most the carry's; a shorter bank is zero-padded onto it) keeps
+        every lane's conv history, and each attached lane's next rendered
+        round runs the dual bank, blending old -> new per sample over
+        min(20 ms, one round) before the EQ. Paused lanes fade when they
+        rejoin; lanes attached after the swap hear the new bank directly.
+        A second swap while fades are pending is newest-wins: pending lanes
+        re-arm toward the newest bank from the newer old half, as the JAX
+        pool does (a lane that never rendered the first fade starts its
+        blend from the intermediate bank, not from what it last played:
+        one round of cosmetic difference, not a state error, since the
+        carry is bank-independent). Alignment debt is untouched.
 
-    def restore(self, snap, resize=False):
-        raise NotImplementedError(f"{_ROADMAP_SNAPSHOT} is not ported yet")
+        A longer bank, or crossfade=False, resets the history and
+        reallocates the carry when its partition count changes (a zeroed
+        lane is rotation-invariant, so no lane owes alignment work).
+        `group` other than None or 0 needs profile groups, not ported."""
+        if group not in (None, 0):
+            raise NotImplementedError(
+                f"set_renderer(group={group}) needs {_ROADMAP_GROUPS}, which "
+                f"is not ported yet")
+        self._check_renderer_lookahead(renderer)
+        if renderer.num_speakers != self.renderer.num_speakers:
+            raise ValueError("renderer speaker count must match the pool's "
+                             "input layout")
+        # Deferred attach zeroing lands first: a pending lane's garbage must
+        # never be kept by a fade or carried into a reallocated carry.
+        self._flush_attach_resets()
+        self.renderer = renderer
+        if crossfade and renderer.partition_count <= self._bank_partitions:
+            old_active = self._conv_params
+            self._rebuild_conv_params()  # padded onto the unchanged carry
+            self._xfade_params = upols.xfade_conv_params(old_active,
+                                                         self._conv_params)
+            self._xfade_operands = ChainOperands(
+                self._mac_bank(self._xfade_params), self._synth, None)
+            self._xfade_pending[:] = self._attached_mask
+            if self._xfade_ramp is None:
+                L = self.step_frames
+                fade = self.config.transition_length(self.sample_rate)
+                self._xfade_ramp = torch.from_numpy(
+                    upols.xfade_ramp(min(fade, L), L)).to(self.device)
+            return True
+        # Reset: fresh history, the carry re-sized to the new bank.
+        same_shape = renderer.partition_count == self._bank_partitions
+        self._bank_partitions = renderer.partition_count
+        self._clear_xfade()
+        self._rebuild_conv_params()
+        if same_shape:
+            reset = upols.conv_reset_paged if self._paged else upols.conv_reset
+            conv = reset(self._state.conv)
+        else:
+            conv = self._fresh_state().conv
+        self._state = PoolState(conv=conv, eq=self._state.eq)
+        self._debt[:] = 0
+        return False
 
-    def state_like(self, max_streams):
-        raise NotImplementedError(f"{_ROADMAP_SNAPSHOT} is not ported yet")
+    def _clear_xfade(self) -> None:
+        """Drop the in-flight hot-swap fade."""
+        self._xfade_params = self._xfade_operands = None
+        self._xfade_pending[:] = False
+
+    # --- checkpoint / resume -----------------------------------------------
+
+    @torch.inference_mode()
+    def snapshot(self, materialize: bool = True) -> dict:
+        """A checkpoint of every lane's carry and of the host state that
+        interprets it: alignment debt, the attached lanes, the EQ
+        crossfade machine. Ring contents (undelivered audio) are transient
+        and not captured. `restore` on a pool of the same construction
+        resumes bit for bit.
+
+        materialize=True gives numpy leaves (the carry fetched to the
+        host); materialize=False keeps device copies (one pass on the card,
+        no host readback), for a caller that must not hold serving while
+        gigabytes come back: copy under its lock, fetch outside it."""
+        self._flush_attach_resets()  # a checkpoint never carries garbage
+        return {
+            "state": _map_carry(_to_host if materialize else torch.clone,
+                                self._state),
+            "debt": self._debt.copy(),
+            "attached": sorted(self._attached),
+            "eq_runtime": self.eq_runtime.snapshot(),
+            "eq_enabled": self._eq_enabled,
+            "groups": 1,
+        }
+
+    def state_like(self, max_streams: int) -> dict:
+        """The carry (and debt) a snapshot of this pool's construction at
+        `max_streams` lanes holds, as tensors on the "meta" device, which
+        allocate nothing: what such a snapshot is checked against before
+        restore(..., resize=True) maps its lanes in."""
+        lanes = int(max_streams)
+
+        def like(t: torch.Tensor, lane_axis: int) -> torch.Tensor:
+            shape = list(t.shape)
+            shape[lane_axis] = lanes
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+
+        conv, eq = self._state
+        if self._paged:
+            conv = upols.PagedConvState(pages=tuple(like(p, -1)
+                                                    for p in conv.pages))
+        else:
+            conv = upols.ConvState(fdl=like(conv.fdl, -1),
+                                   write_pos=np.int32(conv.write_pos))
+        return {
+            "state": PoolState(conv, eq_block.EqState(*(like(t, 0)
+                                                        for t in eq))),
+            "debt": torch.empty((lanes,), dtype=torch.int64, device="meta"),
+        }
+
+    def _resize_snapshot_lanes(self, snap: dict, state: PoolState,
+                               debt: np.ndarray):
+        """Map a snapshot written at another lane count onto this pool:
+        attached lanes compact to the head of the lane space in ascending
+        old-id order (one gather per carry tensor); free lanes gather old
+        lane 0 as finite filler and are reset before any use. Returns
+        (state', debt', attached', lane_map {old id: new id})."""
+        old_max = int(debt.shape[0])
+        attached_old = sorted(int(s) for s in snap["attached"])
+        if any(not (0 <= s < old_max) for s in attached_old):
+            raise ValueError(
+                f"snapshot attached streams out of range for its own lane "
+                f"count {old_max}: {attached_old}")
+        if len(attached_old) > self.max_streams:
+            raise ValueError(
+                f"cannot resize: snapshot group 0 has {len(attached_old)} "
+                f"attached lanes, resized pool fits {self.max_streams} per "
+                f"group: detach streams or size the pool to hold them")
+        idx = np.zeros(self.max_streams, np.int64)
+        idx[:len(attached_old)] = attached_old
+        lanes = torch.from_numpy(idx).to(self.device)
+        lane_map = {s: r for r, s in enumerate(attached_old)}
+        conv, eq = state
+        if hasattr(conv, "pages"):
+            conv = upols.PagedConvState(pages=tuple(
+                p.index_select(-1, lanes) for p in conv.pages))
+        else:
+            conv = upols.ConvState(fdl=conv.fdl.index_select(-1, lanes),
+                                   write_pos=conv.write_pos)
+        eq = eq_block.EqState(*(t.index_select(0, lanes) for t in eq))
+        new_debt = np.zeros(self.max_streams, np.int64)
+        new_debt[:len(attached_old)] = debt[attached_old]
+        return (PoolState(conv, eq), new_debt, sorted(lane_map.values()),
+                lane_map)
+
+    @torch.inference_mode()
+    def restore(self, snap: dict, resize: bool = False) -> Optional[dict]:
+        """Load a `snapshot()` (this pool's, or the JAX pool's through
+        interop.pool_snapshot_from_numpy). With resize=True the snapshot may
+        come from a pool of another max_streams (the same renderer shape
+        and tier): attached lanes keep their exact history and compact
+        into this pool's lanes in ascending old-id order, and the
+        {old id: new id} map is returned for remapping per-lane bookkeeping
+        outside the pool; it raises if the attached lanes do not fit.
+        Returns None when no remap happened.
+
+        Everything is checked before anything changes, so a bad snapshot
+        leaves the pool as it was."""
+        groups = int(snap.get("groups", 1))
+        if groups != 1:
+            raise ValueError(f"snapshot has {groups} profile groups, pool "
+                             f"has 1")
+        want = [(n, tuple(t.shape), t.dtype)
+                for n, t in _carry_leaves(self._state)]
+        try:
+            state = _map_carry(self._restored_leaf, snap["state"])
+        except (AttributeError, TypeError) as err:
+            raise ValueError(f"snapshot state is not a pool carry: {err}") from err
+        debt = np.asarray(snap["debt"], np.int64)
+        lane_map = None
+        if resize and debt.shape[0] != self.max_streams:
+            state, debt, attached, lane_map = self._resize_snapshot_lanes(
+                snap, state, debt)
+        else:
+            attached = sorted(int(s) for s in snap["attached"])
+        got = [(n, tuple(t.shape), t.dtype) for n, t in _carry_leaves(state)]
+        if got != want:
+            raise ValueError(f"snapshot shape/dtype mismatch: {got} vs pool "
+                             f"{want}")
+        if not self._paged and not 0 <= int(state.conv.write_pos) < (
+                self._bank_partitions):
+            raise ValueError(f"snapshot ring cursor {state.conv.write_pos} "
+                             f"out of range for {self._bank_partitions} "
+                             f"partitions")
+        if debt.shape != (self.max_streams,):
+            raise ValueError(f"snapshot debt length {debt.shape} vs pool "
+                             f"({self.max_streams},)")
+        if any(not (0 <= s < self.max_streams) for s in attached):
+            raise ValueError(f"snapshot attached streams out of range for "
+                             f"max_streams={self.max_streams}: {attached}")
+        # The EQ machine is rebuilt on a scratch runtime first: a definition
+        # that does not design must fail here, before the pool changes.
+        EqualizerRuntime(self.sample_rate, self.block_size,
+                         self.config.eq_state_dim, self.config,
+                         device=self.device).restore(snap["eq_runtime"])
+
+        self._state = state
+        self._debt[:] = debt
+        # The restored carry is authoritative: attach resets pending against
+        # the previous state must not zero restored rows. After a resize the
+        # free lanes hold gather filler, so they ARE pending.
+        self._reset_pending[:] = False
+        # A fade in flight is not checkpointed: the carry is
+        # bank-independent, so pending lanes jump to the active bank.
+        self._clear_xfade()
+        self._attached = {s: True for s in attached}
+        self._attached_mask[:] = False
+        self._attached_mask[attached] = True
+        if lane_map is not None:
+            self._reset_pending[:] = ~self._attached_mask
+        self._free = [s for s in range(self.max_streams - 1, -1, -1)
+                      if s not in self._attached]
+        self._pending_out.clear()
+        for s in range(self.max_streams):
+            self.assembler.reset_stream(s)
+            self._out.reset_stream(s)
+        self.eq_runtime.restore(snap["eq_runtime"])
+        self._eq_enabled = bool(snap.get("eq_enabled", self._eq_enabled))
+        return lane_map
+
+    def _restored_leaf(self, a) -> torch.Tensor:
+        """A snapshot leaf as a new contiguous tensor on the pool's device:
+        the pool writes its carry in place, so a snapshot can be restored
+        again."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, copy=True).contiguous()
+        return torch.tensor(np.asarray(a), device=self.device)
 
     # --- data plane --------------------------------------------------------
 
@@ -484,10 +789,11 @@ class StreamPool:
     def prewarm(self, include_hotswap: bool = False) -> None:
         """Build the kernel and load the cuBLAS paths before traffic: each
         step variant runs once (both EQ modes when the EQ is on) on a
-        throwaway state, and one lane roll. The pool's own state, cursor,
-        debt and EQ machine are untouched."""
-        if include_hotswap:
-            raise NotImplementedError(f"{_ROADMAP_HOTSWAP} is not ported yet")
+        throwaway state, and one lane roll. include_hotswap=True also runs
+        each variant of a hot-swap round, on a self-crossfade of the active
+        bank (the dual bank's shapes are those of any later same-carry
+        swap). The pool's own state, cursor, debt, fades and EQ machine are
+        untouched."""
         if self.device.type == "cuda":
             mac_kmajor.build()
         p = self.eq_runtime.active.params
@@ -497,12 +803,21 @@ class StreamPool:
         blocks = torch.zeros(shape, device=self.device)
         idx = torch.arange(B, device=self.device)
         variants = PAGED_VARIANTS if self._paged else RING_VARIANTS
+        rounds = [(self._conv_params, self._operands(p), None, None)]
+        if include_hotswap:
+            dual = upols.xfade_conv_params(self._conv_params, self._conv_params)
+            rounds.append((dual, ChainOperands(self._mac_bank(dual),
+                                               self._synth, None),
+                           torch.zeros(self.step_frames, device=self.device),
+                           torch.zeros(B, dtype=torch.bool,
+                                       device=self.device)))
         for crossfading in ((False, True) if self._eq_enabled else (False,)):
             for variant in variants:
-                pool_step_body(self._conv_params, p, p, self._fresh_state(),
-                               blocks, idx, self.eq_runtime.transition_length,
-                               self._eq_enabled, crossfading, variant,
-                               self._operands(p))
+                for params, operands, ramp, mask in rounds:
+                    pool_step_body(params, p, p, self._fresh_state(), blocks,
+                                   idx, self.eq_runtime.transition_length,
+                                   self._eq_enabled, crossfading, variant,
+                                   operands, ramp, mask)
         roll = (upols.conv_roll_lanes_paged if self._paged
                 else upols.conv_roll_lanes)
         roll(self._fresh_state().conv, idx[:1], idx[:1])
@@ -561,7 +876,18 @@ class StreamPool:
                 self._roll_rejoining(indices)
                 up.arrays[1][:k] = indices
                 blocks, idx = (t[:k].to(self.device, non_blocking=True)
-                               for t in up.tensors)
+                               for t in up.tensors[:2])
+                # A hot-swap round if any harvested lane still owes its
+                # fade: the dual bank runs, pending lanes blend old -> new
+                # and the others take the new half. The mask goes up as a
+                # staged copy of _xfade_pending, which changes right below.
+                fading = (self._xfade_params is not None
+                          and self._xfade_pending[indices].any())
+                conv_params, ramp, mask = self._conv_params, None, None
+                if fading:
+                    conv_params, ramp = self._xfade_params, self._xfade_ramp
+                    up.arrays[2][:] = self._xfade_pending
+                    mask = up.tensors[2].to(self.device, non_blocking=True)
                 up.record()
                 if M > 1:
                     # [k, S, M*T] -> [k, S, M, T]: ring pops are frame-major
@@ -571,12 +897,19 @@ class StreamPool:
                 eq_state, p_from, p_to, crossfading = self._begin_eq_round(
                     self._state.eq)
                 variant = self._variant(indices)
+                operands = (self._xfade_operands if fading
+                            else self._operands(p_to))
                 state, y_rows = pool_step_body(
-                    self._conv_params, p_from, p_to,
+                    conv_params, p_from, p_to,
                     PoolState(self._state.conv, eq_state), blocks, idx,
                     self.eq_runtime.transition_length, self._eq_enabled,
-                    crossfading, variant, self._operands(p_to))
+                    crossfading, variant, operands, ramp, mask)
                 self._state = state
+                if fading:
+                    self.fade_rounds += 1
+                    self._xfade_pending[indices] = False
+                    if not (self._xfade_pending & self._attached_mask).any():
+                        self._clear_xfade()  # every lane has faded
                 self.eq_runtime.after_block(step_frames)
                 self._debt[self._attached_mask] += 1
                 self._debt[indices] = 0
@@ -609,6 +942,7 @@ class StreamPool:
             self._state = self._fresh_state()
             self._debt[:] = 0
             self._reset_pending[:] = False  # the fresh state is already zero
+            self._clear_xfade()  # a zeroed history has nothing to blend
             self.render_errors += 1
             raise
         return rounds
@@ -704,4 +1038,6 @@ class StreamPool:
             "debt_rolls": self.debt_rolls,
             "variant_rounds": dict(self.variant_rounds),
             "eq_transitioning": self.eq_runtime.is_transitioning,
+            "hotswap_fading": int((self._xfade_pending & attached).sum()),
+            "fade_rounds": self.fade_rounds,
         }

@@ -16,7 +16,11 @@ Phases, each printing one line before the last:
      plain version and float64, CUDA-event times of the kernel, the plain
      version and the one PyTorch call of the same function, and the bound
      from bytes and FLOPs; the fused kernel is timed in turns with the three
-     launches (three, fused, fused, three) and equals them bit for bit;
+     launches (three, fused, fused, three) and equals them bit for bit; the
+     hot-swap rounds' dual-bank shapes (mac_kmajor at O=8, B=8192 and
+     16384; mac_kmajor_pages at O=64) are timed in turns with the routes
+     the dispatch took before it had them (the generic kernel, 16 columns
+     per pass), which they equal bit for bit;
   4. bake: models.bake.bake at full width (B=16384 streams, S=2, T=512, a
      synthetic 4320-tap HRIR bank, a 10-filter EQ) over 32 blocks with
      blocks_per_step=8 and 1; the outputs are finite and non-silent, the two
@@ -47,6 +51,20 @@ Phases, each printing one line before the last:
      (plain versions) fed the same ragged traffic with three EQ retargets
      and a detach and re-attach; every stream agrees within 1e-5, for both
      tiers;
+ 10. hotswap_engine: BinauralEngine at 16384 lanes, two crossfaded swaps
+     (the second while the first fade is pending), 4 sampled lanes within
+     1e-5 of a float64 time-varying reference, fade blocks launching
+     mac_kmajor at O=8 and steady blocks at O=4;
+ 11. hotswap_pool, hotswap_pool_paged: both pool tiers at full width with
+     ragged traffic, a swap mid-stream and a lane paused across it (on the
+     paged tier a second swap to a bank of fewer partitions, padded onto
+     the carry); the same reference check, one MAC launch per round at the
+     dual-bank O in fade rounds (8, 64) and the steady O otherwise, and the
+     CUDA-event time of one steady and one fade device round;
+ 12. checkpoint: snapshot() mid-traffic on both tiers, restored into a fresh
+     pool that then delivers the same audio as the uninterrupted one, bit
+     for bit; on the ring tier also a restore(..., resize=True) into 4096
+     lanes after half the lanes detach; the snapshot's bytes and seconds;
 then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Needs no network; imports no jax.
@@ -74,7 +92,10 @@ from airwave_tpu_torch.graph.renderer import (build_hrir_time_domain,
 from airwave_tpu_torch.io import wav as wavio
 from airwave_tpu_torch.kernels import mac_kmajor as mk
 from airwave_tpu_torch.models.bake import bake
-from airwave_tpu_torch.models.binaural import BinauralChain, ChainState
+from airwave_tpu_torch.models.binaural import (BinauralChain, BinauralEngine,
+                                               ChainOperands, ChainState,
+                                               chain_step_fn,
+                                               make_chain_operands)
 from airwave_tpu_torch.ops import biquad_design as bd
 from airwave_tpu_torch.ops import eq_block, upols
 from airwave_tpu_torch.runtime.stream_pool import StreamPool, pool_step_body
@@ -105,6 +126,17 @@ POOL_ROUNDS = {1: (48, 8), BLOCKS_PER_STEP: (6, 4)}  # (ragged, full) rounds
 POOL_SHARE = 0.75           # chance that a lane is fed in a ragged round
 POOL_TIMED_BLOCKS = 64      # blocks per lane per timing reading
 RETARGET_LANES = 64
+SHORT_TAPS = 2000           # the shorter bank of the paged tier's second swap
+ENGINE_BLOCKS = (8, 1, 7)   # engine: blocks before swap 1, to swap 2, after
+# Hot-swap traffic per tier: "r" a ragged round, "f" every lane fed, an int
+# a swap to that bank; and the rounds in which the paused lane is not fed.
+HOTSWAP_SCHEDULE = {
+    1: (["r"] * 6 + [1] + ["r"] * 6 + ["f"] * 2, range(4, 8)),
+    BLOCKS_PER_STEP: (["r"] * 3 + [1] + ["r"] * 3 + ["f", 2] + ["r"] * 2
+                      + ["f"] * 2, range(1, 5)),
+}
+CHECKPOINT_ROUNDS = {1: (4, 6), BLOCKS_PER_STEP: (2, 3)}  # (before, after)
+RESIZE_LANES = POOL_LANES[1] // 2
 
 
 def phase(label: str, /, **fields) -> None:
@@ -264,7 +296,7 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
 
     for B in (BATCH, POOL_LANES[1]):
         # R = S * P2 * 2 with P2 = 10 (9 partitions + 1), O = E * 2.
-        fdl, h = tensor((Kp, 40, B)), tensor((Kp, 4, 40))
+        fdl, h = tensor((Kp, 40, B)), tensor((Kp, EARS * 2, 40))
         measure("mac_kmajor", f"single_block K={Kp} R=40 O=4 B={B}",
                 lambda: mk.mac_kmajor(fdl, h), lambda: mk.mac_kmajor_ref(fdl, h),
                 lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
@@ -316,6 +348,54 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
                                  f"launch per page by up to {diff}")
         del pages, bank, stacked
         torch.cuda.empty_cache()
+
+    # A hot-swap round's dual bank doubles the output columns: O = 8 for the
+    # single block (the ring pool at 8192 lanes, the engine at 16384) and
+    # O = 64 for the paged round. Each is timed in turns with the route the
+    # dispatch took before it had these shapes (the generic kernel; 16
+    # columns per pass over the pages), which it must equal bit for bit.
+    def dual(kernel, shape, new, old, args):
+        equal, diff = torch.equal(new(), old()), (new() - old()).abs().max().item()
+        turns = [cuda_ms(f, 20) for f in (old, new, new, old)]
+        equal_plain = torch.equal(new(), args[0]())
+        measure(kernel, f"dual bank {shape}", new, *args,
+                ms=(turns[1] + turns[2]) / 2, ms_turns=turns[1:3],
+                previous_route_ms=(turns[0] + turns[3]) / 2,
+                previous_route_ms_turns=[turns[0], turns[3]],
+                equals_previous_route=equal,
+                max_abs_diff_previous_route=diff, equals_plain=equal_plain)
+        if not equal:
+            raise AssertionError(f"{shape}: the dual-bank route differs from "
+                                 f"the previous route by up to {diff}")
+
+    R, O = 40, 2 * EARS * 2
+    for B in (POOL_LANES[1], BATCH):
+        fdl, h = tensor((Kp, R, B)), tensor((Kp, O, R))
+        dual("mac_kmajor", f"single_block K={Kp} R={R} O={O} B={B}",
+             lambda: mk.mac_kmajor(fdl, h),
+             lambda: mk.mac_kmajor(fdl, h, generic=True),
+             (lambda: mk.mac_kmajor_ref(fdl, h),
+              lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
+              lambda: torch.einsum("krb,kor->okb", fdl, h),
+              bound(4 * (fdl.numel() + h.numel() + O * Kp * B),
+                    2 * Kp * R * O * B)))
+        del fdl, h
+        torch.cuda.empty_cache()
+    n, R, O = 3, SPEAKERS * 2 * M, M * 2 * EARS * 2
+    pages = [tensor((Kp, R, BATCH)) for _ in range(n)]
+    bank = tensor((n, Kp, O, R))
+    stacked = torch.stack(pages)
+    dual("mac_kmajor_pages", f"{n} pages K={Kp} R={R} O={O} B={BATCH}",
+         lambda: mk.mac_kmajor_pages(pages, bank),
+         lambda: mk.mac_kmajor_pages(pages, bank, columns=16),
+         (lambda: mk.mac_kmajor_pages_ref(pages, bank),
+          lambda: sum(mk.mac_kmajor_ref(p.double(), h.double())
+                      for p, h in zip(pages, bank)),
+          lambda: torch.einsum("pkrb,pkor->okb", stacked, bank),
+          bound(4 * (n * Kp * R * BATCH + bank.numel() + O * Kp * BATCH),
+                2 * n * Kp * R * O * BATCH)))
+    del pages, bank, stacked
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -323,17 +403,39 @@ def reference_lane(hrir, x, preamp, coeffs):
     """float64 reference of the chain for one lane's input x [S, n]: per
     speaker and ear fftconvolve, summed over speakers, then the EQ cascade
     (sosfilt of the port's design_cascade coefficients, preamp first)."""
+    return reference_blend([hrir], [np.ones(x.shape[-1])], x, preamp, coeffs)
+
+
+def reference_blend(banks, weights, x, preamp, coeffs):
+    """float64 reference of one lane through a time-varying bank: the
+    per-sample blend sum_i weights[i] * (banks[i] * x) of full-history
+    convolutions (scipy fftconvolve), then the EQ cascade (sosfilt)."""
     from scipy.signal import fftconvolve, sosfilt
 
     n = x.shape[-1]
     sos = np.array([[c.b0, c.b1, c.b2, 1.0, c.a1, c.a2] for c in coeffs])
     out = np.zeros((EARS, n))
     for e in range(EARS):
-        dry = sum(fftconvolve(x[s].astype(np.float64),
-                              hrir[s, e].astype(np.float64))[:n]
-                  for s in range(SPEAKERS))
+        dry = sum(w * sum(fftconvolve(x[s].astype(np.float64),
+                                          h[s, e].astype(np.float64))[:n]
+                              for s in range(SPEAKERS))
+                  for h, w in zip(banks, weights) if w.any())
         out[e] = sosfilt(sos, preamp * dry)
     return out
+
+
+def fade_weights(n_banks: int, n: int, events) -> np.ndarray:
+    """Per-sample weights [n_banks, n] of one lane's output: bank 0 until
+    the first event, then for each (start, from, to, fade), in order, a
+    ramp (t - start + 1) / fade from `from` to `to`, clipped at 1."""
+    w = np.zeros((n_banks, n))
+    w[0] = 1.0
+    for start, frm, to, fade in events:
+        r = np.minimum((np.arange(n - start) + 1.0) / fade, 1.0)
+        w[:, start:] = 0.0
+        w[frm, start:] += 1.0 - r
+        w[to, start:] += r
+    return w
 
 
 def reference_lanes(hrir, x, lanes, preamp, coeffs):
@@ -445,14 +547,15 @@ def timing_phase(seed: int, dev: torch.device, smi: str) -> None:
           device_step_top_kernels=kernels, device_step_top_ops=ops)
 
 
-def hrir_wav(seed: int, directory: str) -> wavio.WAVData:
-    """A seeded synthetic 14-channel 4320-frame HRIR bank, written as a WAV
-    file by the port's io.wav and loaded back: the renderer's asset path."""
+def hrir_wav(seed: int, directory: str, taps: int = HRIR_TAPS) -> wavio.WAVData:
+    """A seeded synthetic 14-channel HRIR bank of `taps` frames, written as a
+    WAV file by the port's io.wav and loaded back: the renderer's asset
+    path."""
     rng = np.random.default_rng(seed)
-    bank = (rng.standard_normal((HRIR_CHANNELS, HRIR_TAPS)) * 0.05).astype(
+    bank = (rng.standard_normal((HRIR_CHANNELS, taps)) * 0.05).astype(
         np.float32)
     bank[:, 0] += 0.8
-    path = os.path.join(directory, "hrir14.wav")
+    path = os.path.join(directory, f"hrir14-{seed}.wav")
     wavio.save(path, bank, SAMPLE_RATE)
     return wavio.load(path)
 
@@ -676,6 +779,341 @@ def pool_retarget_phase(wav, dev: torch.device, rng: np.random.Generator):
                                      f"(M={M})")
 
 
+def launches_now() -> dict:
+    """Each kernel's launch count and its launches by output width O."""
+    return {name: {"total": mk.launch_count(name),
+                   **{f"O={o}": mk.launch_count(name, columns=o)
+                      for o in (4, 8, 32, 64)
+                      if mk.launch_count(name, columns=o)}}
+            for name in KERNELS}
+
+
+def engine_hotswap_phase(wavs, dev: torch.device, rng: np.random.Generator,
+                         smi: str) -> dict:
+    """BinauralEngine(16384 lanes) with the 10-filter EQ: ENGINE_BLOCKS[0]
+    blocks, a crossfaded swap, ENGINE_BLOCKS[1] block, a second swap while
+    the first fade is still pending (a restart from the lerped bank), then
+    ENGINE_BLOCKS[2] blocks. 4 sampled lanes against the float64
+    time-varying reference; each fade block one mac_kmajor launch at O = 8,
+    each steady block one at O = 4; then one steady and one fade block alone
+    in CUDA-event time."""
+    renderers = [prepare_renderer(w, channel_maps.STEREO, SAMPLE_RATE, BLOCK,
+                                  device=dev) for w in wavs]
+    banks = [build_hrir_time_domain(w, channel_maps.STEREO, SAMPLE_RATE)
+             for w in wavs]
+    preamp, coeffs = bench_eq()
+    eng = BinauralEngine(BATCH, SAMPLE_RATE, BLOCK, renderer=renderers[0],
+                         device=dev)
+    eng.prepare_equalizer(bench_eq_definition())
+    zeros = np.zeros((BATCH, SPEAKERS, BLOCK), np.float32)
+    for _ in range(-(-EQ_RAMP // BLOCK) + 1):  # the EQ's unity ramp ends
+        eng.process_block(zeros)
+    sampled = sorted(int(b) for b in rng.choice(BATCH, 4, replace=False))
+    before, between, after = ENGINE_BLOCKS
+    swaps = {before: 1, before + between: 2}
+    xs, ys = [], []
+    mk.reset_launch_count()
+    t0 = time.perf_counter()
+    for b in range(before + between + after):
+        if b in swaps and not eng.set_renderer(renderers[swaps[b]]):
+            raise AssertionError(f"engine swap at block {b} did not crossfade")
+        x = rng.standard_normal((BATCH, SPEAKERS, BLOCK), dtype=np.float32)
+        x *= 0.25
+        ys.append(eng.process_block(x)[sampled])
+        xs.append(x[sampled])
+    seconds = time.perf_counter() - t0
+    launches = launches_now()
+    fade = eng.config.transition_length(SAMPLE_RATE)
+    n, t1, t2 = len(xs) * BLOCK, before * BLOCK, (before + between) * BLOCK
+    r1 = np.minimum((np.arange(n) - t1 + 1.0) / fade, 1.0).clip(0.0)
+    r2 = np.minimum((np.arange(n) - t2 + 1.0) / fade, 1.0).clip(0.0)
+    r0 = min((t2 - t1 + 1.0) / fade, 1.0)  # where the restart freezes fade 1
+    weights = np.stack([1.0 - r1, r1, np.zeros(n)])
+    weights[:, t2:] = np.stack([(1.0 - r2) * (1.0 - r0), (1.0 - r2) * r0,
+                                r2])[:, t2:]
+    x_lane, y_lane = np.concatenate(xs, -1), np.concatenate(ys, -1)
+    lane_err = [rel_rms(y_lane[i], reference_blend(banks, weights, x_lane[i],
+                                                   preamp, coeffs))
+                for i in range(len(sampled))]
+    fade_blocks = min(between + -(-fade // BLOCK), len(xs) - before)
+    expected = {"mac_kmajor": {"total": len(xs), "O=4": len(xs) - fade_blocks,
+                               "O=8": fade_blocks},
+                "mac_kmajor_pages": {"total": 0}}
+
+    with torch.inference_mode():
+        state = ChainState(
+            upols.make_conv_state(BATCH, SPEAKERS, eng._conv_params.partition_count,
+                                  BLOCK, dev),
+            eq_block.make_eq_state(BATCH, device=dev))
+        x_dev = torch.from_numpy(zeros).to(dev).normal_(0.0, 0.25)
+        p = eng.eq_runtime.active.params
+        dual = upols.xfade_conv_params(eng._conv_params, eng._conv_params)
+        dual_ops = make_chain_operands(dual, None, 1, eng._k_padded)
+        ramp = torch.from_numpy(upols.xfade_ramp(fade, BLOCK)).to(dev)
+        tl = eng.eq_runtime.transition_length
+        steady_ms = cuda_ms(lambda: chain_step_fn(
+            eng._conv_params, p, p, state, x_dev, tl, True, True, False,
+            eng._operands), 10)
+        fade_ms = cuda_ms(lambda: chain_step_fn(
+            dual, p, p, state, x_dev, tl, True, True, False, dual_ops,
+            xfade_ramp=ramp), 10)
+    phase("hotswap_engine", card=smi, lanes=BATCH, blocks=len(xs),
+          swap_blocks=sorted(swaps), seconds=seconds, launches=launches,
+          lanes_sampled=sampled, lane_rel_rms=lane_err,
+          steady_block_device_ms=steady_ms, fade_block_device_ms=fade_ms)
+    if not max(lane_err) <= CHAIN_TOL:
+        raise AssertionError(f"engine hot-swap: lane rel-RMS {lane_err} > "
+                             f"{CHAIN_TOL}")
+    if launches != expected:
+        raise AssertionError(f"engine hot-swap: launches {launches}, expected "
+                             f"{expected}")
+    return launches
+
+
+class LaneRecorder:
+    """Sampled lanes of a pool, round by round: their inputs and outputs,
+    and their hot-swap fades on each lane's own output timeline as the pool
+    runs them. A swap arms every attached lane; an armed lane fades in its
+    next rendered round, from the bank it was armed from (on a second swap
+    before that round, the newer old half: the JAX pool's semantics) to the
+    newest."""
+
+    def __init__(self, lanes, step: int):
+        self.lanes, self.step = lanes, step
+        self.inputs = {b: [] for b in lanes}
+        self.outputs = {b: [] for b in lanes}
+        self.current = {b: 0 for b in lanes}
+        self.armed = {b: None for b in lanes}
+        self.events = {b: [] for b in lanes}
+
+    def swap(self, to: int, fade: int) -> None:
+        for b in self.lanes:
+            frm = self.armed[b][1] if self.armed[b] else self.current[b]
+            self.armed[b] = (frm, to, fade)
+
+    def record(self, fed: np.ndarray, chunks: np.ndarray, y: np.ndarray):
+        for b in self.lanes:
+            pos = int(np.searchsorted(fed, b))
+            if pos == len(fed) or fed[pos] != b:
+                continue
+            if self.armed[b]:
+                frm, to, fade = self.armed[b]
+                self.events[b].append((len(self.inputs[b]) * self.step, frm,
+                                       to, fade))
+                self.current[b], self.armed[b] = to, None
+            self.inputs[b].append(chunks[pos])
+            self.outputs[b].append(y[pos])
+
+    def errors(self, banks, preamp, coeffs) -> list:
+        err = []
+        for b in self.lanes:
+            x = np.concatenate(self.inputs[b], -1)
+            w = fade_weights(len(banks), x.shape[-1], self.events[b])
+            err.append(rel_rms(np.concatenate(self.outputs[b], -1),
+                               reference_blend(banks, w, x, preamp, coeffs)))
+        return err
+
+
+def pool_hotswap_phase(label: str, wavs, dev: torch.device, M: int,
+                       rng: np.random.Generator, smi: str) -> dict:
+    """A pool at full width through HOTSWAP_SCHEDULE[M]: ragged traffic,
+    crossfaded swaps (on the paged tier a second one to a bank of fewer
+    partitions, padded onto the carry), one sampled lane paused across the
+    first swap that rejoins with alignment debt and fades then. 4 sampled
+    lanes against the float64 time-varying reference; every round one MAC
+    launch, at twice the steady O in a fade round (O = 8 ring, 64 paged) and
+    at the steady O (4, 32) otherwise; then one steady and one fade device
+    round alone in CUDA-event time, the fade round's aten ops from
+    torch.profiler."""
+    lanes = POOL_LANES[M]
+    schedule, paused_rounds = HOTSWAP_SCHEDULE[M]
+    renderers = [prepare_renderer(w, channel_maps.STEREO, SAMPLE_RATE, BLOCK,
+                                  lookahead=M, device=dev) for w in wavs]
+    banks = [build_hrir_time_domain(w, channel_maps.STEREO, SAMPLE_RATE)
+             for w in wavs]
+    preamp, coeffs = bench_eq()
+    pool = StreamPool(lanes, SAMPLE_RATE, renderers[0],
+                      eq_definition=bench_eq_definition(), block_size=BLOCK,
+                      blocks_per_step=M, device=dev)
+    every = np.array([pool.attach() for _ in range(lanes)])
+    t0 = time.perf_counter()
+    pool.prewarm(include_hotswap=True)
+    prewarm_seconds = time.perf_counter() - t0
+    settle(pool)
+    step = pool.step_frames
+    fade = min(pool.config.transition_length(SAMPLE_RATE), step)
+    sampled = sorted(int(b) for b in rng.choice(lanes, 4, replace=False))
+    paused = sampled[0]
+    rec = LaneRecorder(sampled, step)
+    name = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+    steady_o, dual_o = (EARS * 2, 2 * EARS * 2) if M == 1 else (
+        M * EARS * 2, 2 * M * EARS * 2)
+    round_kinds, carry = [], []
+    mk.reset_launch_count()
+    t0 = time.perf_counter()
+    rnd = 0
+    for item in schedule:
+        if not isinstance(item, str):
+            if not pool.set_renderer(renderers[item]):
+                raise AssertionError(f"{label}: swap to bank {item} reset")
+            rec.swap(item, fade)
+            carry.append([pool._bank_partitions,
+                          renderers[item].partition_count, pool._lane_cycle])
+            continue
+        fed = every if item == "f" else np.nonzero(
+            rng.random(lanes) < POOL_SHARE)[0]
+        if rnd in paused_rounds:
+            fed = fed[fed != paused]
+        chunks = rng.standard_normal((len(fed), SPEAKERS, step),
+                                     dtype=np.float32) * 0.25
+        fades, before = pool.fade_rounds, launches_now()[name]
+        rec.record(fed, chunks, feed_round(pool, fed, chunks))
+        after = launches_now()[name]
+        kind = "fade" if pool.fade_rounds > fades else "steady"
+        want_o = dual_o if kind == "fade" else steady_o
+        if (after["total"] - before["total"] != 1
+                or after.get(f"O={want_o}", 0) - before.get(f"O={want_o}", 0) != 1):
+            raise AssertionError(f"{label}: round {rnd} ({kind}) launched "
+                                 f"{before} -> {after}, expected one {name} "
+                                 f"at O={want_o}")
+        round_kinds.append(kind)
+        rnd += 1
+    seconds = time.perf_counter() - t0
+    launches = launches_now()
+    stats = pool.stats()
+    lane_err = rec.errors(banks, preamp, coeffs)
+
+    variant = "ring_id" if M == 1 else "paged_id"
+    p = pool.eq_runtime.active.params
+    with torch.inference_mode():
+        state = pool._fresh_state()
+        shape = (lanes, SPEAKERS, M, BLOCK) if M > 1 else (lanes, SPEAKERS, BLOCK)
+        x = torch.empty(shape, device=dev).normal_(0.0, 0.25)
+        idx = torch.arange(lanes, device=dev)
+        dual = upols.xfade_conv_params(pool._conv_params, pool._conv_params)
+        dual_ops = ChainOperands(pool._mac_bank(dual), pool._synth, None)
+        mask = torch.ones(lanes, dtype=torch.bool, device=dev)
+
+        def device_round(params, operands, ramp=None, lane_mask=None):
+            nonlocal state
+            state, _ = pool_step_body(
+                params, p, p, state, x, idx, pool.eq_runtime.transition_length,
+                True, False, variant, operands, ramp, lane_mask)
+
+        steady_ms = cuda_ms(lambda: device_round(pool._conv_params,
+                                                 pool._operands(p)), 5)
+        fade_ms = cuda_ms(lambda: device_round(dual, dual_ops,
+                                               pool._xfade_ramp, mask), 5)
+        _, _, fade_ops = device_breakdown(
+            lambda: device_round(dual, dual_ops, pool._xfade_ramp, mask))
+    phase(label, card=smi, lanes=lanes, blocks_per_step=M,
+          prewarm_seconds=prewarm_seconds, seconds=seconds,
+          rounds=len(round_kinds), round_kinds=round_kinds,
+          carry_bank_cycle=carry, launches=launches,
+          fade_rounds=stats["fade_rounds"], debt_rolls=stats["debt_rolls"],
+          lanes_sampled=sampled, paused_lane=paused,
+          lane_fades=[rec.events[b] for b in sampled], lane_rel_rms=lane_err,
+          steady_round_device_ms=steady_ms, fade_round_device_ms=fade_ms,
+          fade_round_top_ops=fade_ops)
+    if not max(lane_err) <= CHAIN_TOL:
+        raise AssertionError(f"{label}: lane rel-RMS {lane_err} > {CHAIN_TOL}")
+    if round_kinds[-1] != "steady" or pool._xfade_params is not None:
+        raise AssertionError(f"{label}: the fades did not end")
+    if not rec.events[paused] or stats["debt_rolls"] <= 0:
+        raise AssertionError(f"{label}: the paused lane did not rejoin and fade")
+    if any(c[0] != carry[0][0] or c[2] != carry[0][0] // M for c in carry):
+        raise AssertionError(f"{label}: the carry's partitions or lane cycle "
+                             f"moved with the renderer: {carry}")
+    if len(wavs) > 2 and not carry[-1][1] < carry[-1][0]:
+        raise AssertionError(f"{label}: the last bank was not shorter than the "
+                             f"carry: {carry}")
+    return launches
+
+
+def checkpoint_phase(wav, dev: torch.device, rng: np.random.Generator,
+                     smi: str) -> dict:
+    """Both tiers at full width: snapshot() mid ragged traffic, the pool
+    continued, the snapshot restored into a fresh pool fed the same rounds:
+    the delivered audio must be equal. On the ring tier also half the lanes
+    detached, a snapshot restored with resize=True into a 4096-lane pool,
+    and the compacted lanes' audio must equal the uninterrupted lanes'."""
+    launches = {}
+    for M in (1, BLOCKS_PER_STEP):
+        lanes = POOL_LANES[M]
+        before, after = CHECKPOINT_ROUNDS[M]
+        a = make_pool(wav, lanes, M, dev, bench_eq_definition())
+        for _ in range(lanes):
+            a.attach()
+        settle(a)
+        step = a.step_frames
+
+        def ragged(among):
+            fed = among[rng.random(len(among)) < POOL_SHARE]
+            return fed, rng.standard_normal((len(fed), SPEAKERS, step),
+                                            dtype=np.float32) * 0.25
+
+        every = np.arange(lanes)
+        for _ in range(before):
+            feed_round(a, *ragged(every))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = a.snapshot()
+        snapshot_seconds = time.perf_counter() - t0
+        conv = snap["state"].conv
+        nbytes = sum(leaf.nbytes for leaf in (
+            (*conv.pages,) if M > 1 else (conv.fdl,)) + tuple(snap["state"].eq))
+        b = make_pool(wav, lanes, M, dev, bench_eq_definition())
+        t0 = time.perf_counter()
+        b.restore(snap)
+        torch.cuda.synchronize()
+        restore_seconds = time.perf_counter() - t0
+        del snap
+        mk.reset_launch_count()
+        equal, differ = True, 0.0
+        for _ in range(after):
+            fed, chunks = ragged(every)
+            ya, yb = feed_round(a, fed, chunks), feed_round(b, fed, chunks)
+            equal &= bool(np.array_equal(ya, yb))
+            differ = max(differ, float(np.abs(ya - yb).max()))
+        launches[f"checkpoint_{M}"] = launches_now()
+        result = dict(lanes=lanes, blocks_per_step=M, rounds_continued=after,
+                      snapshot_bytes=nbytes, snapshot_seconds=snapshot_seconds,
+                      restore_seconds=restore_seconds, resumed_equal=equal,
+                      resumed_max_abs_diff=differ)
+        del b
+        if M == 1:
+            a_lanes = every[1::2]
+            for s in every[::2]:
+                a.detach(int(s))
+            snap = a.snapshot()
+            c = make_pool(wav, RESIZE_LANES, M, dev, bench_eq_definition())
+            lane_map = c.restore(snap, resize=True)
+            del snap
+            mapped = np.array([lane_map[int(s)] for s in a_lanes])
+            resized_equal, resized_differ = True, 0.0
+            for _ in range(after):
+                fed, chunks = ragged(a_lanes)
+                ya = feed_round(a, fed, chunks)
+                yc = feed_round(c, mapped[np.searchsorted(a_lanes, fed)],
+                                chunks)
+                resized_equal &= bool(np.array_equal(ya, yc))
+                resized_differ = max(resized_differ, float(np.abs(ya - yc).max()))
+            result.update(resized_lanes=RESIZE_LANES,
+                          resized_compacted=bool(np.array_equal(
+                              mapped, np.arange(len(a_lanes)))),
+                          resized_equal=resized_equal,
+                          resized_max_abs_diff=resized_differ)
+            del c
+        del a
+        torch.cuda.empty_cache()
+        phase("checkpoint", card=smi, **result)
+        if not (result["resumed_equal"] and result.get("resized_equal", True)
+                and result.get("resized_compacted", True)):
+            raise AssertionError(f"checkpoint (M={M}): restored audio differs "
+                                 f"from the uninterrupted pool's: {result}")
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -697,12 +1135,26 @@ def main() -> None:
         del pool, base
         torch.cuda.empty_cache()
     pool_retarget_phase(wav, dev, rng)
+    with tempfile.TemporaryDirectory() as tmp:
+        swap = [hrir_wav(args.seed + i, tmp) for i in (1, 2)]
+        short = hrir_wav(args.seed + 3, tmp, SHORT_TAPS)
+    hotswap = {
+        "engine_hotswap": engine_hotswap_phase([wav, *swap], dev, rng, smi),
+        "pool_ring_hotswap": pool_hotswap_phase(
+            "hotswap_pool", [wav, swap[0]], dev, 1, rng, smi),
+        "pool_paged_hotswap": pool_hotswap_phase(
+            "hotswap_pool_paged", [wav, swap[0], short], dev, BLOCKS_PER_STEP,
+            rng, smi),
+    }
+    checkpoints = checkpoint_phase(wav, dev, rng, smi)
     phase("done", seconds=time.perf_counter() - t_start)
 
     paths = {"bake_paged": launches[BLOCKS_PER_STEP],
              "bake_single_block": launches[1],
              "pool_ring": launches["pool"],
-             "pool_paged": launches["pool_paged"]}
+             "pool_paged": launches["pool_paged"],
+             **{path: {name: counts[name]["total"] for name in KERNELS}
+                for path, counts in {**hotswap, **checkpoints}.items()}}
     # Each kernel's headline case: the single block at B=16384 (bake M=1)
     # and the fused 3 pages (bake M=8 and the paged pool).
     entries = []

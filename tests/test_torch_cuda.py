@@ -14,6 +14,7 @@ from airwave_tpu_torch.graph.renderer import prepare_renderer
 from airwave_tpu_torch.io.wav import WAVData
 from airwave_tpu_torch.kernels import mac_kmajor as mk
 from airwave_tpu_torch.models.bake import bake
+from airwave_tpu_torch.models.binaural import BinauralEngine
 from airwave_tpu_torch.ops import biquad_design as bd
 from airwave_tpu_torch.ops import upols
 from airwave_tpu_torch.runtime.stream_pool import StreamPool
@@ -49,6 +50,51 @@ def test_kernel_matches_plain(cuda_device, K, R, O, B):
     ref = mk.mac_kmajor_ref(fdl.double(), h.double()).cpu().numpy()
     assert rel_rms(got.cpu().numpy(), ref) <= 1e-6
     assert rel_rms(acc.cpu().numpy(), 2 * ref) <= 1e-6
+
+
+@pytest.mark.parametrize("K,R,B", [(520, 40, 8192), (24, 7, 300), (8, 13, 129)])
+def test_dual_bank_instance_equals_generic(cuda_device, K, R, B):
+    """The hot-swap round's O = 8 runs its own instance, bit for bit equal
+    to the generic kernel it replaces in the dispatch, and within 1e-6 of
+    float64."""
+    rng = np.random.default_rng(K + R + B)
+    fdl = torch.tensor(rng.standard_normal((K, R, B), dtype=np.float32),
+                       device=cuda_device)
+    h = torch.tensor(rng.standard_normal((K, 8, R), dtype=np.float32),
+                     device=cuda_device)
+    mk.reset_launch_count()
+    got = mk.mac_kmajor(fdl, h)
+    assert mk.launch_count("mac_kmajor", columns=8) == 1
+    assert torch.equal(got, mk.mac_kmajor(fdl, h, generic=True))
+    ref = mk.mac_kmajor_ref(fdl.double(), h.double()).cpu().numpy()
+    assert rel_rms(got.cpu().numpy(), ref) <= 1e-6
+    plain = mk.mac_kmajor_ref(fdl, h).cpu().numpy()
+    assert rel_rms(got.cpu().numpy(), plain) <= 1e-6
+
+
+@pytest.mark.parametrize("n,K,R,O,B", [
+    (3, 520, 32, 64, 1000),   # the paged hot-swap round's dual bank (M = 8)
+    (2, 24, 12, 96, 130),     # three passes, rows by 4-byte copies
+    (4, 16, 7, 64, 5),        # ragged R and B
+])
+def test_pages_kernel_wide_columns_equal_narrow(cuda_device, n, K, R, O, B):
+    """O a multiple of 32 takes 32 columns per pass over the pages: bit for
+    bit what 16 columns per pass (twice the passes) gives, within 1e-6 of
+    float64, one launch."""
+    rng = np.random.default_rng(n + K + R + O + B)
+    pages = [torch.tensor(rng.standard_normal((K, R, B), dtype=np.float32),
+                          device=cuda_device) for _ in range(n)]
+    bank = torch.tensor(rng.standard_normal((n, K, O, R), dtype=np.float32),
+                        device=cuda_device)
+    mk.reset_launch_count()
+    got = mk.mac_kmajor_pages(pages, bank)
+    assert mk.launch_count("mac_kmajor_pages", columns=O) == 1
+    assert torch.equal(got, mk.mac_kmajor_pages(pages, bank, columns=16))
+    exact = mk.mac_kmajor_pages_ref([p.double() for p in pages],
+                                    bank.double()).cpu().numpy()
+    assert rel_rms(got.cpu().numpy(), exact) <= 1e-6
+    plain = mk.mac_kmajor_pages_ref(pages, bank).cpu().numpy()
+    assert rel_rms(got.cpu().numpy(), plain) <= 1e-6
 
 
 def test_kernel_rejects_non_contiguous(cuda_device):
@@ -211,5 +257,86 @@ def test_pool_on_card_matches_cpu_pool(cuda_device, M):
     assert card_rounds > 0 and mk.launch_count(used) == card_rounds
     assert mk.launch_count(unused) == 0
     assert pools[0].stats()["debt_rolls"] > 0
+    for a, b in zip(*outs):
+        assert rel_rms(np.concatenate(a, -1), np.concatenate(b, -1)) <= 1e-5
+
+
+def _wav(seed, frames=300):
+    rng = np.random.default_rng(seed)
+    return WAVData(48_000.0, (rng.standard_normal((14, frames)) * 0.2).astype(
+        np.float32))
+
+
+def test_engine_swap_on_card_matches_cpu(cuda_device):
+    """BinauralEngine with a live EQ through two crossfaded swaps (the
+    second mid-fade, restarting from the lerped bank) on the card against
+    the same engine on the CPU; each fade block launches mac_kmajor at
+    O = 8, each steady block at O = 4."""
+    T, lanes = 64, 5
+    x = (np.random.default_rng(3).standard_normal((lanes, 2, 12 * T)) * 0.3
+         ).astype(np.float32)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        rs = [prepare_renderer(_wav(s), channel_maps.STEREO, 48_000.0, T,
+                               device=dev) for s in (1, 2, 3)]
+        eng = BinauralEngine(lanes, 48_000.0, T, renderer=rs[0], device=dev)
+        eng.prepare_equalizer(_preset(2.0))
+        mk.reset_launch_count()
+        ys = []
+        for b in range(12):
+            if b == 4:
+                assert eng.set_renderer(rs[1]) is True
+            if b == 6:
+                assert eng.set_renderer(rs[2]) is True
+            ys.append(eng.process_block(x[:, :, b * T:(b + 1) * T]))
+        outs.append(np.concatenate(ys, -1))
+        if dev.type == "cuda":
+            # The 20 ms fade is 15 blocks of 64: blocks 4 on are all fading.
+            assert mk.launch_count("mac_kmajor", columns=8) == 8
+            assert mk.launch_count("mac_kmajor", columns=4) == 4
+    assert rel_rms(outs[0], outs[1]) <= 1e-5
+
+
+@pytest.mark.parametrize("M", [1, 8])
+def test_pool_fade_round_on_card_matches_cpu(cuda_device, M):
+    """Hot-swap rounds on each tier, card against CPU, with one lane paused
+    across the swap. The fade mask is not raced: as soon as the swap round
+    is delivered (on_deliver) every lane is marked pending again, on both
+    pools alike, and the card's audio still equals the CPU's (a mask read
+    from the live array after that change would differ). Each fade round
+    launches the MAC once at twice the steady columns (O = 8 ring, O = 64
+    paged): the swap round, the round re-armed by that change, and the
+    paused lane's rejoin."""
+    T, lanes = 64, 6
+    rng = np.random.default_rng(M)
+    pools = []
+    for dev in (cuda_device, torch.device("cpu")):
+        rs = [prepare_renderer(_wav(s), channel_maps.STEREO, 48_000.0, T,
+                               lookahead=M, device=dev) for s in (4, 5)]
+        pool = StreamPool(lanes, 48_000.0, rs[0], eq_definition=_preset(1.0),
+                          block_size=T, blocks_per_step=M, device=dev)
+        for _ in range(lanes):
+            pool.attach()
+        pools.append((pool, rs[1]))
+    step = pools[0][0].step_frames
+    outs = [[[] for _ in range(lanes)] for _ in pools]
+    chunks = (rng.standard_normal((8, lanes, 2, step)) * 0.3).astype(np.float32)
+    steady, dual = (4, 8) if M == 1 else (32, 64)
+    mk.reset_launch_count()
+    for rnd in range(8):
+        fed = np.arange(lanes - 1) if 2 <= rnd < 5 else np.arange(lanes)
+        for (pool, new), out in zip(pools, outs):
+            rearm = None
+            if rnd == 3:
+                assert pool.set_renderer(new) is True
+                rearm = lambda p=pool: p._xfade_pending.fill(True)  # noqa: E731
+            pool.push_many(fed, chunks[rnd, fed])
+            assert pool.pump(on_deliver=rearm) == 1
+            for j, y in zip(fed, pool.pull_many(fed, step)):
+                out[j].append(y)
+    name = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+    assert mk.launch_count(name, columns=dual) == 3
+    assert mk.launch_count(name, columns=steady) == 5
+    assert pools[0][0].stats()["fade_rounds"] == 3
     for a, b in zip(*outs):
         assert rel_rms(np.concatenate(a, -1), np.concatenate(b, -1)) <= 1e-5
