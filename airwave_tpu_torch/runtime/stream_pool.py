@@ -51,6 +51,12 @@ Deliberate differences from the JAX pool:
     pool raises (native.AssemblerBuildError), as a kernel that cannot be
     built raises.
 
+A one-profile pool is the JAX pool's single group: `groups` is 1,
+`group_of` maps every lane to group 0, `renderers` holds the one renderer,
+and `attach`, `set_equalizer` and `set_renderer` take `group` None or 0 (a
+serving frontend written against grouped pools drives it unchanged);
+`attach` and `set_equalizer` raise ValueError for any other group.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 profile groups (`profiles=`, and so `set_renderer(..., group=g)` for a
 group other than 0) and the device mesh (`mesh=`).
@@ -455,10 +461,34 @@ class StreamPool:
                 self._folded = (eq_to, synth_folded)
         return ChainOperands(self._bank, self._synth, synth_folded)
 
+    # --- profile groups (one) -----------------------------------------------
+
+    groups = 1
+
+    @property
+    def group_size(self) -> int:
+        """Lanes per profile group: every lane, in the one group."""
+        return self.max_streams
+
+    def group_of(self, stream: int) -> int:
+        """Profile group owning a lane (lanes past the pool map past the
+        one group, which callers reject as out of range)."""
+        return int(stream) // self.group_size
+
+    @property
+    def renderers(self) -> list:
+        """Each group's renderer: the one renderer, following set_renderer."""
+        return [self.renderer]
+
+    def _check_group(self, group: Optional[int]) -> None:
+        if group not in (None, 0):
+            raise ValueError(f"group {group} out of range for 1 profile")
+
     # --- stream lifecycle --------------------------------------------------
 
-    def attach(self) -> int:
-        """Claim a free lane."""
+    def attach(self, group: int = 0) -> int:
+        """Claim a free lane (`group` must be 0: one profile)."""
+        self._check_group(group)
         if not self._free:
             raise RuntimeError("pool is full")
         stream = self._free.pop()
@@ -504,10 +534,13 @@ class StreamPool:
 
     # --- control -----------------------------------------------------------
 
-    def set_equalizer(self, definition: Optional[EqualizerDefinition]) -> None:
+    def set_equalizer(self, definition: Optional[EqualizerDefinition],
+                      group: Optional[int] = None) -> None:
         """Retarget the pool EQ (the 20 ms crossfade runs in the next
         rounds). `None` on an EQ-less pool stays a no-op; `None` on an
-        active pool crossfades to unity and keeps the EQ in the step."""
+        active pool crossfades to unity and keeps the EQ in the step.
+        `group` must be None or 0 (one profile)."""
+        self._check_group(group)
         if definition is None and not self._eq_enabled:
             return
         self.eq_runtime.set_target(definition)
@@ -1028,6 +1061,8 @@ class StreamPool:
         return {
             "max_streams": self.max_streams,
             "attached": len(self._attached),
+            "attached_per_group": None,
+            "groups": self.groups,
             "blocks_per_step": self.blocks_per_step,
             "rounds": self.rounds,
             "blocks_rendered": self.blocks_rendered,

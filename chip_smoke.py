@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, each printing one line before the last:
+Phases, each printing one line before the last (its "at_s" field the
+script's elapsed seconds):
   1. device: require CUDA, print the card's name and power limit
      (nvidia-smi), apply and check the strict fp32 precision policy;
   2. build: build the library of both MAC kernels, mac_kmajor and
@@ -65,6 +66,37 @@ Phases, each printing one line before the last:
      pool that then delivers the same audio as the uninterrupted one, bit
      for bit; on the ring tier also a restore(..., resize=True) into 4096
      lanes after half the lanes detach; the snapshot's bytes and seconds;
+ 13. serve_ring: the serve CLI's path in process (shell.app.build_serve_pool,
+     restore_serve_checkpoint, RenderServer with the selector data plane)
+     on a 1032-lane ring pool with the seeded 14-channel 4320-frame WAV and
+     the 10-filter EQ as files; 1024 clients of the port's load generator
+     (python -m airwave_tpu_torch.shell.loadgen, a separate process) paced
+     at realtime, and meanwhile 4 wire clients with seeded inputs, within
+     1e-5 of float64; every loadgen client completes, no server error;
+     admission and chunk latency percentiles, the server's wire-to-wire
+     latency, the pool's rounds, the aggregate realtime multiple, the pump
+     thread's share of the wall time, a torch.profiler trace of 40 pump
+     calls under the load (the card's and the pump thread's busy shares,
+     ms per round, the pump thread's top host ops; for the record only),
+     and mac_kmajor launched on the path;
+ 14. serve_paged: the same at --blocks-per-step 8 (mac_kmajor_pages);
+ 15. serve_checkpoint: on the loaded ring server a client streams half its
+     signal, the server saves its checkpoint (bytes and seconds), the client
+     streams the rest (the uninterrupted twin); a fresh pool restored from
+     the file through restore_serve_checkpoint serves the same lane's rest
+     to a client resuming with its token, bit for bit the twin's; a
+     truncated copy of the file starts a pool fresh and is moved aside;
+ 16. cli: `python -m airwave_tpu_torch serve` as a process (its listening
+     line read), `... client` on a WAV (within 1e-5 of float64 past the EQ's
+     20 ms activation ramp), SIGINT to the server (it writes its
+     checkpoint), a restart on that checkpoint (restored_checkpoint true),
+     and `... status`;
+ 17. render: shell.app.main(["render", ...]) on 16 stereo 30 s WAVs with the
+     EQ, on the graph path (BinauralEngine behind the frame adapter, the
+     device EQ; mac_kmajor) and with --throughput (the bake at M=8;
+     mac_kmajor_pages): 4 sampled outputs within 1e-5 of float64 (the graph
+     path past its 20 ms EQ activation ramp), and each path's realtime
+     multiple;
 then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Needs no network; imports no jax.
@@ -73,11 +105,17 @@ Needs no network; imports no jax.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -99,6 +137,11 @@ from airwave_tpu_torch.models.binaural import (BinauralChain, BinauralEngine,
 from airwave_tpu_torch.ops import biquad_design as bd
 from airwave_tpu_torch.ops import eq_block, upols
 from airwave_tpu_torch.runtime.stream_pool import StreamPool, pool_step_body
+from airwave_tpu_torch.shell import app as shell_app
+from airwave_tpu_torch.shell.serve import RenderServer
+from airwave_tpu_torch.shell.wire_client import (_LEN, _read_exact,
+                                                 render_via_server)
+from airwave_tpu_torch.utils.checkpoint import checkpoint_path
 
 SAMPLE_RATE = 48_000.0
 BATCH, SPEAKERS, EARS, BLOCK, HRIR_TAPS = 16384, 2, 2, 512, 4320
@@ -138,9 +181,25 @@ HOTSWAP_SCHEDULE = {
 CHECKPOINT_ROUNDS = {1: (4, 6), BLOCKS_PER_STEP: (2, 3)}  # (before, after)
 RESIZE_LANES = POOL_LANES[1] // 2
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+SERVE_LANES = 1032          # the serve CLI's pool: the clients and 8 spare
+SERVE_CLIENTS = 1024        # loadgen clients, paced at realtime
+LOADGEN_ARGS = ("--speed", "1.0", "--chunk", "512", "--blocks-each", "64")
+SERVE_CHECKS = 4            # wire clients with known inputs during the load
+SERVE_CHECK_FRAMES = 16 * BLOCK + 77
+SERVE_PROFILE_CALLS = 40    # pump calls traced by torch.profiler under load
+CHECKPOINT_BLOCKS = 8       # blocks streamed before and after the checkpoint
+CLI_FRAMES = 2 * 48_000
+RENDER_FILES, RENDER_SECONDS = 16, 30
+
+
+_T0 = time.perf_counter()
+
 
 def phase(label: str, /, **fields) -> None:
-    print(json.dumps({"phase": label, **fields}), flush=True)
+    """Print one phase line; "at_s" is the script's elapsed seconds."""
+    print(json.dumps({"phase": label, "at_s": time.perf_counter() - _T0,
+                      **fields}), flush=True)
 
 
 def rel_rms(a, ref) -> float:
@@ -263,10 +322,12 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
     shape), and must equal that sum bit for bit."""
     Kp = upols.padded_bin_count(BLOCK)
     cases = []
+    # The inputs are drawn on the card: gigabytes of host draws and copies
+    # took most of this phase's time.
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
 
     def tensor(shape):
-        return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
-                            device=dev)
+        return torch.randn(shape, generator=gen, device=dev)
 
     def measure(kernel, name, kern, plain, exact_fn, library, bnd, ms=None,
                 **extra):
@@ -294,7 +355,9 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
         cases.append(case)
         torch.cuda.empty_cache()
 
-    for B in (BATCH, POOL_LANES[1]):
+    # The bake, the ring pool, the serving ring pool, the render CLI's graph
+    # path (one lane per input file).
+    for B in (BATCH, POOL_LANES[1], SERVE_LANES, RENDER_FILES):
         # R = S * P2 * 2 with P2 = 10 (9 partitions + 1), O = E * 2.
         fdl, h = tensor((Kp, 40, B)), tensor((Kp, EARS * 2, 40))
         measure("mac_kmajor", f"single_block K={Kp} R=40 O=4 B={B}",
@@ -348,6 +411,23 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
                                  f"launch per page by up to {diff}")
         del pages, bank, stacked
         torch.cuda.empty_cache()
+
+    # The paged serving pool and the render CLI's --throughput bake run the
+    # same 3 pages at their own lane counts.
+    n, R, O = 3, SPEAKERS * 2 * M, M * EARS * 2
+    for B in (SERVE_LANES, RENDER_FILES):
+        pages = [tensor((Kp, R, B)) for _ in range(n)]
+        bank = tensor((n, Kp, O, R))
+        stacked = torch.stack(pages)
+        measure("mac_kmajor_pages", f"paged fused {n} pages K={Kp} R={R} "
+                f"O={O} B={B}", lambda: mk.mac_kmajor_pages(pages, bank),
+                lambda: mk.mac_kmajor_pages_ref(pages, bank),
+                lambda: sum(mk.mac_kmajor_ref(p.double(), h.double())
+                            for p, h in zip(pages, bank)),
+                lambda: torch.einsum("pkrb,pkor->okb", stacked, bank),
+                bound(4 * (n * Kp * R * B + bank.numel() + O * Kp * B),
+                      2 * n * Kp * R * O * B))
+        del pages, bank, stacked
 
     # A hot-swap round's dual bank doubles the output columns: O = 8 for the
     # single block (the ring pool at 8192 lanes, the engine at 16384) and
@@ -480,7 +560,12 @@ def bake_phase(rng: np.random.Generator, dev: torch.device) -> dict:
             raise AssertionError(f"M={M}: launches {launches[M]}, expected "
                                  f"{expected} (one per step)")
         outs[M] = y
-    modes = rel_rms(outs[BLOCKS_PER_STEP], outs[1])
+    # On the card in float64: the host takes seconds for 2 x 537M samples.
+    a, b = (torch.from_numpy(outs[m]).to(dev, torch.float64)
+            for m in (BLOCKS_PER_STEP, 1))
+    modes = ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+    del a, b
+    torch.cuda.empty_cache()
     phase("bake_modes", rel_rms=modes)
     if not modes <= CHAIN_TOL:
         raise AssertionError(f"M=8 vs M=1 rel-RMS {modes} > {CHAIN_TOL}")
@@ -1114,6 +1199,547 @@ def checkpoint_phase(wav, dev: torch.device, rng: np.random.Generator,
     return launches
 
 
+class ServeFiles:
+    """The serving and CLI phases' inputs as files, the way a user passes
+    them: the seeded 14-channel HRIR WAV and the 10-filter EQ as an
+    EqualizerAPO preset, with the float64 reference's bank and cascade."""
+
+    def __init__(self, directory: str, wav: wavio.WAVData, seed: int):
+        self.dir = directory
+        self.hrir = os.path.join(directory, f"hrir14-{seed}.wav")
+        wavio.save(self.hrir, wav.audio, SAMPLE_RATE)
+        kinds = {bd.FilterType.PEAKING: "PK", bd.FilterType.LOW_SHELF: "LSC",
+                 bd.FilterType.HIGH_SHELF: "HSC"}
+        definition = bench_eq_definition()
+        lines = [f"Preamp: {definition.preamp_db} dB"] + [
+            f"Filter {f.source_number}: ON {kinds[f.type]} Fc "
+            f"{f.frequency_hz} Hz Gain {f.gain_db} dB Q {f.q}"
+            for f in definition.filters]
+        self.eq = os.path.join(directory, "bench-eq.txt")
+        with open(self.eq, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        self.hrir_td = build_hrir_time_domain(wavio.load(self.hrir),
+                                              channel_maps.STEREO, SAMPLE_RATE)
+        self.preamp, self.coeffs = bench_eq()
+        parsed = bd.design_cascade(shell_app._load_equalizer(self.eq),
+                                   SAMPLE_RATE)
+        if parsed != (self.preamp, self.coeffs):
+            raise AssertionError("the EQ preset file does not parse to the "
+                                 "bench EQ")
+
+    def reference(self, x: np.ndarray) -> np.ndarray:
+        return reference_lane(self.hrir_td, x, self.preamp, self.coeffs)
+
+
+def child_env() -> dict:
+    """The environment of a child process that imports the port from this
+    checkout."""
+    return dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
+def serve_args(files: ServeFiles, M: int, ckpt: str, *extra: str):
+    return shell_app.build_parser().parse_args([
+        "serve", "--hrir", files.hrir, "--eq", files.eq, "--port", "0",
+        "--max-streams", str(SERVE_LANES), "--blocks-per-step", str(M),
+        "--checkpoint", ckpt, *extra])
+
+
+def start_server(args):
+    """shell.app.cmd_serve's path up to the accept loop, in process (so the
+    kernels' launch counts can be read): build_serve_pool,
+    restore_serve_checkpoint, RenderServer. Returns (server, restored)."""
+    pool, _layout = shell_app.build_serve_pool(args)
+    restored, tokens, aliases = shell_app.restore_serve_checkpoint(
+        args.checkpoint, pool)
+    server = RenderServer(pool, host=args.host, port=args.port,
+                          resume_grace=args.resume_grace,
+                          orphan_tokens=tokens, orphan_aliases=aliases,
+                          io_mode=args.io_mode)
+    server.start()
+    return server, restored
+
+
+class PumpClock:
+    """Installed on one pool instance (the server's pump thread calls
+    pool.pump): the host wall time spent in pump and its calls, and, once
+    armed, a torch.profiler trace of the next `calls` pump calls taken in
+    the pump thread itself (the profiler records the host ops of the thread
+    that starts it, and the card's kernels of every thread)."""
+
+    def __init__(self, pool: StreamPool):
+        self.pool, self.seconds, self.calls = pool, 0.0, 0
+        self._pump = pool.pump
+        self._armed = 0
+        self._prof = None
+        pool.pump = self
+
+    def arm(self, calls: int) -> None:
+        self._armed = calls
+
+    def __call__(self, *args, **kwargs):
+        if self._armed and self._prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            self._prof = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            self._window = [time.perf_counter(), self.pool.rounds, 0.0,
+                            self._armed]
+        t0 = time.perf_counter()
+        try:
+            return self._pump(*args, **kwargs)
+        finally:
+            dt = time.perf_counter() - t0
+            self.seconds += dt
+            self.calls += 1
+            if self._prof is not None:
+                self._window[2] += dt
+                self._window[3] -= 1
+                if self._window[3] == 0:
+                    self._close_profile()
+
+    def _close_profile(self) -> None:
+        """Stop the trace (in the pump thread that started it, under the
+        server's lock: the stop's seconds are a stall the phase reports);
+        the events are summarized later, off the serving path."""
+        start, rounds0, pump_s, _ = self._window
+        wall = time.perf_counter() - start
+        rounds = self.pool.rounds - rounds0
+        t0 = time.perf_counter()
+        self._prof.__exit__(None, None, None)
+        self._stopped = (self._prof, wall, rounds, pump_s,
+                         time.perf_counter() - t0)
+        self._prof, self._armed = None, 0
+
+    def remove(self) -> dict:
+        """Uninstall (after the load: the pump is idle) and summarize the
+        trace: the card's and the pump thread's busy shares over the traced
+        calls, ms per round, the top kernels and host ops. A trace still
+        open because fewer calls came is stopped first."""
+        del self.pool.pump  # the class's method again
+        if self._prof is not None:
+            self._close_profile()
+        from torch.autograd import DeviceType
+
+        prof, wall, rounds, pump_s, stop_s = self._stopped
+        events = prof.key_averages()
+        device_ms = sum(e.self_device_time_total for e in events
+                        if e.device_type == DeviceType.CUDA) / 1e3
+        kernels = sorted(((e.self_device_time_total / 1e3, e.key[:60])
+                          for e in events if e.device_type == DeviceType.CUDA
+                          and e.self_device_time_total > 0), reverse=True)
+        host = sorted(((e.self_cpu_time_total / 1e3, e.key) for e in events
+                       if e.device_type == DeviceType.CPU
+                       and e.self_cpu_time_total > 0), reverse=True)
+        per = max(rounds, 1)
+        return dict(
+            calls=SERVE_PROFILE_CALLS, window_s=wall, rounds=rounds,
+            stop_seconds=stop_s, device_busy_share=device_ms / (wall * 1e3),
+            pump_busy_share=pump_s / wall,
+            device_ms_per_round=device_ms / per,
+            pump_ms_per_round=pump_s * 1e3 / per,
+            wall_ms_per_round=wall * 1e3 / per,
+            top_kernels_ms=[[k, t] for t, k in kernels[:6]],
+            top_host_ops_ms=[[k, t] for t, k in host[:10]])
+
+
+def serve_phase(label: str, files: ServeFiles, M: int, seed: int,
+                rng: np.random.Generator, smi: str):
+    """SERVE_CLIENTS loadgen clients at realtime pacing against the serve
+    path on a SERVE_LANES-lane pool, and SERVE_CHECKS wire clients with
+    known inputs during the load, held against float64. Returns (server,
+    launches); the ring tier's server is left running for the checkpoint
+    phase."""
+    t0 = time.perf_counter()
+    server, restored = start_server(
+        serve_args(files, M, os.path.join(files.dir, f"{label}.ckpt")))
+    setup = time.perf_counter() - t0
+    pool = server.pool
+    host, port = server.address
+    used = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+    clock = PumpClock(pool)
+    mk.reset_launch_count()
+    rounds0 = pool.rounds
+    xs = [rng.standard_normal((SPEAKERS, SERVE_CHECK_FRAMES),
+                              dtype=np.float32) * 0.25
+          for _ in range(SERVE_CHECKS)]
+    ys = [None] * SERVE_CHECKS
+    t0 = time.perf_counter()
+    load_proc = subprocess.Popen(
+        [sys.executable, "-m", "airwave_tpu_torch.shell.loadgen",
+         "--connect", f"{host}:{port}", "--clients", str(SERVE_CLIENTS),
+         *LOADGEN_ARGS, "--timeout", "240", "--seed", str(seed)],
+        cwd=REPO, env=child_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        # The checking clients join once the pool's construction-time EQ
+        # ramp is over, so their fresh lanes hear the target from their
+        # first sample, as the float64 reference does.
+        deadline = time.monotonic() + 240
+        while True:
+            with server._lock:
+                rt = pool.eq_runtime
+                settled = (rt.active.definition is not None
+                           and not rt.is_transitioning
+                           and rt.pending_target is None)
+            if settled:
+                break
+            if time.monotonic() > deadline or load_proc.poll() is not None:
+                raise AssertionError(f"{label}: the pool's EQ ramp did not "
+                                     f"end under the load")
+            time.sleep(0.005)
+        clock.arm(SERVE_PROFILE_CALLS)
+
+        def check(i):
+            ys[i] = render_via_server(server.address, xs[i], chunk=BLOCK)
+
+        threads = [threading.Thread(target=check, args=(i,))
+                   for i in range(SERVE_CHECKS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        out, err = load_proc.communicate(timeout=300)
+    finally:
+        if load_proc.poll() is None:
+            load_proc.kill()
+            load_proc.wait()
+    wall = time.perf_counter() - t0
+    launches = {name: mk.launch_count(name) for name in KERNELS}
+    profiled = clock.remove()
+    stats = server.stats()
+    if not out.strip():
+        raise AssertionError(f"{label}: loadgen printed nothing: {err[-800:]}")
+    load = json.loads(out.strip().splitlines()[-1])
+    errs = [rel_rms(y, files.reference(x))
+            if y is not None and y.shape == x.shape else float("inf")
+            for x, y in zip(xs, ys)]
+    phase(label, card=smi, lanes=SERVE_LANES, blocks_per_step=M,
+          setup_seconds=setup, seconds=wall, clients=load["clients"],
+          completed=load["completed"], failed=load["failed"],
+          fail_reasons=load["fail_reasons"], loadgen_wall_s=load["wall_s"],
+          admission=load["admission"], chunk_latency=load["chunk_latency"],
+          completion_spread_s=load["completion_spread_s"],
+          rendered_realtime_multiple=load["rendered_realtime_multiple"],
+          server_latency=stats["latency"],
+          pool_rounds=stats["pool"]["rounds"] - rounds0,
+          pool_blocks_rendered=stats["pool"]["blocks_rendered"],
+          variant_rounds=stats["pool"]["variant_rounds"],
+          connections_served=stats["connections_served"],
+          protocol_errors=stats["protocol_errors"],
+          pump_errors=stats["pump_errors"],
+          truncated_closes=stats["truncated_closes"],
+          rejected_full=stats["rejected_full"], launches=launches,
+          pump_seconds=clock.seconds, pump_calls=clock.calls,
+          pump_share_of_loadgen_wall=clock.seconds / load["wall_s"],
+          profile=profiled, check_frames=SERVE_CHECK_FRAMES,
+          check_rel_rms=errs)
+    if restored:
+        raise AssertionError(f"{label}: a fresh server restored a checkpoint")
+    if not (load["completed"] == SERVE_CLIENTS and load["failed"] == 0):
+        raise AssertionError(f"{label}: {load['completed']}/{SERVE_CLIENTS} "
+                             f"clients completed: {load['fail_reasons']}")
+    bad = {k: stats[k] for k in ("protocol_errors", "pump_errors",
+                                 "truncated_closes", "rejected_full")
+           if stats[k]}
+    if bad or stats["pool"]["render_errors"]:
+        raise AssertionError(f"{label}: server errors {bad}, render errors "
+                             f"{stats['pool']['render_errors']}")
+    if not max(errs) <= CHAIN_TOL:
+        raise AssertionError(f"{label}: checking clients' rel-RMS {errs} > "
+                             f"{CHAIN_TOL}")
+    if launches[used] <= 0 or any(launches[n] for n in KERNELS if n != used):
+        raise AssertionError(f"{label}: launches {launches}, expected only "
+                             f"{used}")
+    if M > 1:
+        server.stop()
+        del server, pool
+        torch.cuda.empty_cache()
+        return None, launches
+    return server, launches
+
+
+def _stream(conn: socket.socket, audio: np.ndarray) -> np.ndarray:
+    """Send audio [2, n] (n a multiple of BLOCK) in BLOCK-frame messages and
+    read back exactly n rendered frames."""
+    for t in range(0, audio.shape[1], BLOCK):
+        conn.sendall(_LEN.pack(BLOCK)
+                     + audio[:, t:t + BLOCK].T.astype("<f4").tobytes())
+    pieces, have = [], 0
+    while have < audio.shape[1]:
+        (k,) = _LEN.unpack(_read_exact(conn, _LEN.size))
+        if k == 0:
+            raise AssertionError("the server closed the stream early")
+        pieces.append(np.frombuffer(_read_exact(conn, k * 8),
+                                    "<f4").reshape(k, 2).T)
+        have += k
+    return np.concatenate(pieces, axis=1)
+
+
+def serve_checkpoint_phase(server: RenderServer, files: ServeFiles,
+                           rng: np.random.Generator, smi: str) -> None:
+    """On the loaded ring server: a want_lane client streams
+    CHECKPOINT_BLOCKS blocks, the server saves its checkpoint, the client
+    streams as many more (the uninterrupted twin). A fresh pool restored
+    from the file serves the rest to a client resuming the lane with its
+    token: bit for bit the twin. A truncated copy of the file starts fresh
+    and is moved aside."""
+    pool = server.pool
+    n = CHECKPOINT_BLOCKS * BLOCK
+    x = rng.standard_normal((SPEAKERS, 2 * n), dtype=np.float32) * 0.25
+    conn = socket.create_connection(server.address, timeout=60)
+    try:
+        conn.sendall(json.dumps({"channels": SPEAKERS,
+                                 "want_lane": True}).encode() + b"\n")
+        line = b""
+        while not line.endswith(b"\n"):
+            line += conn.recv(1)
+        ack = json.loads(line.decode())
+        first = _stream(conn, x[:, :n])
+        with server._lock:
+            t0 = time.perf_counter()
+            pool.snapshot(materialize=False)
+            torch.cuda.synchronize()
+            lock_seconds = time.perf_counter() - t0
+        ckpt = os.path.join(files.dir, "serve_ring.ckpt")
+        t0 = time.perf_counter()
+        server.save_checkpoint(ckpt)
+        save_seconds = time.perf_counter() - t0
+        attached_at_save = len(pool._attached)
+        nbytes = os.path.getsize(checkpoint_path(ckpt))
+        twin = _stream(conn, x[:, n:])
+        conn.sendall(_LEN.pack(0))
+        eof = _read_exact(conn, _LEN.size) == _LEN.pack(0)
+    finally:
+        conn.close()
+    server.stop()
+    del server, pool
+    torch.cuda.empty_cache()
+
+    args = serve_args(files, 1, ckpt)
+    fresh, _layout = shell_app.build_serve_pool(args)
+    t0 = time.perf_counter()
+    restored, tokens, aliases = shell_app.restore_serve_checkpoint(ckpt, fresh)
+    torch.cuda.synchronize()
+    restore_seconds = time.perf_counter() - t0
+    resumed = RenderServer(fresh, port=0, orphan_tokens=tokens,
+                           orphan_aliases=aliases, io_mode=args.io_mode)
+    resumed.start()
+    try:
+        orphans = resumed.stats()["orphan_lanes"]
+        rest = render_via_server(resumed.address, x[:, n:], chunk=BLOCK,
+                                 resume=ack["lane"],
+                                 resume_token=ack["token"])
+        resumed_streams = resumed.resumed_streams
+    finally:
+        resumed.stop()
+    equal = bool(rest.shape == twin.shape and np.array_equal(rest, twin))
+    err = rel_rms(np.concatenate([first, twin], -1), files.reference(x))
+
+    cut = os.path.join(files.dir, "truncated.ckpt")
+    with open(checkpoint_path(ckpt), "rb") as src, \
+            open(checkpoint_path(cut), "wb") as dst:
+        dst.write(src.read(nbytes // 2))
+    bad = shell_app.restore_serve_checkpoint(cut, fresh)
+    moved = (not os.path.exists(checkpoint_path(cut))
+             and os.path.exists(checkpoint_path(cut) + ".incompatible"))
+    del fresh
+    torch.cuda.empty_cache()
+    phase("serve_checkpoint", card=smi, lanes=SERVE_LANES,
+          attached_at_save=attached_at_save, checkpoint_bytes=nbytes,
+          save_seconds=save_seconds, lock_seconds=lock_seconds,
+          restore_seconds=restore_seconds, restored=restored,
+          orphan_lanes=orphans, resumed_streams=resumed_streams,
+          blocks_each_side=CHECKPOINT_BLOCKS, resumed_equal=equal,
+          resumed_max_abs_diff=(float(np.abs(rest - twin).max())
+                                if rest.shape == twin.shape else None),
+          lane_rel_rms=err, clean_eof=eof, truncated_restored=bad[0],
+          truncated_moved_aside=moved)
+    if not (restored and orphans == 1 and resumed_streams == 1 and eof):
+        raise AssertionError("serve_checkpoint: the restart did not offer "
+                             "and resume the lane")
+    if not equal:
+        raise AssertionError("serve_checkpoint: the resumed lane differs from "
+                             "its uninterrupted twin")
+    if not err <= CHAIN_TOL:
+        raise AssertionError(f"serve_checkpoint: lane rel-RMS {err} > "
+                             f"{CHAIN_TOL}")
+    if bad != (False, None, None) or not moved:
+        raise AssertionError(f"serve_checkpoint: the truncated file gave "
+                             f"{bad}, moved aside: {moved}")
+
+
+class ServeProcess:
+    """`python -m airwave_tpu_torch serve ...` as a child process: its
+    JSON stdout lines collected by a reader thread, its stderr in a file."""
+
+    def __init__(self, args, stderr_path: str):
+        self.stderr_path = stderr_path
+        self._stderr = open(stderr_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "airwave_tpu_torch", "serve", *args],
+            cwd=REPO, env=child_env(), stdout=subprocess.PIPE,
+            stderr=self._stderr, text=True)
+        self.lines = []
+        self._listening = threading.Event()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                self.lines.append(json.loads(line))
+            except ValueError:
+                continue
+            if "listening" in self.lines[-1]:
+                self._listening.set()
+
+    def _stderr_tail(self) -> str:
+        with open(self.stderr_path) as f:
+            return f.read()[-1500:]
+
+    def ready(self, timeout: float = 240) -> dict:
+        if not self._listening.wait(timeout):
+            raise AssertionError(f"serve printed no listening line: "
+                                 f"{self._stderr_tail()}")
+        return next(line for line in self.lines if "listening" in line)
+
+    def interrupt(self, timeout: float = 120) -> int:
+        self.proc.send_signal(signal.SIGINT)
+        return self.proc.wait(timeout)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._stderr.close()
+
+
+def run_cli(*args: str, timeout: float = 240) -> dict:
+    proc = subprocess.run([sys.executable, "-m", "airwave_tpu_torch", *args],
+                          cwd=REPO, env=child_env(), capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"airwave_tpu_torch {args[0]} exited "
+                             f"{proc.returncode}: {proc.stderr[-1500:]}")
+    return json.loads(proc.stdout[proc.stdout.index("{"):])
+
+
+def cli_phase(files: ServeFiles, rng: np.random.Generator, smi: str) -> None:
+    """The entry point as a user runs it: serve as a process, client on a
+    WAV, SIGINT (the checkpoint is written), a restart on the checkpoint,
+    status."""
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(files.dir, "cli.ckpt")
+    serve = ["--hrir", files.hrir, "--eq", files.eq, "--port", "0",
+             "--checkpoint", ckpt, "--checkpoint-interval", "0"]
+    x = rng.standard_normal((SPEAKERS, CLI_FRAMES), dtype=np.float32) * 0.25
+    inp = os.path.join(files.dir, "cli-in.wav")
+    outp = os.path.join(files.dir, "cli-out.wav")
+    wavio.save(inp, x, SAMPLE_RATE)
+    first = ServeProcess(serve, os.path.join(files.dir, "serve1.err"))
+    try:
+        t0 = time.perf_counter()
+        ready = first.ready()
+        start_seconds = time.perf_counter() - t0
+        host, port = ready["listening"]
+        t0 = time.perf_counter()
+        client = run_cli("client", "--input", inp, "--output", outp,
+                         "--host", host, "--port", str(port))
+        client_seconds = time.perf_counter() - t0
+        first_rc = first.interrupt()
+    finally:
+        first.close()
+    saved = {"checkpoint_saved": ckpt} in first.lines
+    y = wavio.load(outp).audio
+    # The server's first round starts its EQ's unity -> target ramp, which
+    # this client's lane hears; the float64 reference is the target alone.
+    skip = EQ_RAMP + BLOCK
+    err = rel_rms(y[:, skip:], files.reference(x)[:, skip:])
+    second = ServeProcess(serve, os.path.join(files.dir, "serve2.err"))
+    try:
+        restart = second.ready()
+        second_rc = second.interrupt()
+    finally:
+        second.close()
+    status = run_cli("status")
+    phase("cli", card=smi, serve_listening=ready, serve_start_seconds=start_seconds,
+          client=client, client_seconds=client_seconds,
+          client_rel_rms_past_ramp=err, serve_exit=first_rc,
+          checkpoint_saved=saved,
+          checkpoint_bytes=os.path.getsize(checkpoint_path(ckpt)),
+          restart_listening=restart, restart_exit=second_rc, status=status,
+          seconds=time.perf_counter() - t_phase)
+    if ready["device"] != "cuda:0" or ready["restored_checkpoint"]:
+        raise AssertionError(f"cli: serve started as {ready}")
+    if client["truncated"] or client["rendered_frames"] != CLI_FRAMES:
+        raise AssertionError(f"cli: client {client}")
+    if not err <= CHAIN_TOL:
+        raise AssertionError(f"cli: client rel-RMS {err} > {CHAIN_TOL}")
+    if first_rc or second_rc or not saved:
+        raise AssertionError(f"cli: serve exits {first_rc}, {second_rc}; "
+                             f"checkpoint saved: {saved}")
+    if restart["restored_checkpoint"] is not True:
+        raise AssertionError(f"cli: the restart did not restore: {restart}")
+    if (status["device"] != "cuda:0" or not status["native_assembler"]
+            or torch.cuda.get_device_name(0) not in status["devices"]):
+        raise AssertionError(f"cli: status {status}")
+
+
+def render_phase(files: ServeFiles, rng: np.random.Generator,
+                 smi: str) -> dict:
+    """shell.app.main(["render", ...]) on RENDER_FILES stereo WAVs of
+    RENDER_SECONDS with the EQ, on the graph path and with --throughput;
+    4 sampled outputs against float64 (the graph path past its EQ
+    activation ramp). Returns each path's launches."""
+    n = int(RENDER_SECONDS * SAMPLE_RATE)
+    inputs, sampled, refs = [], sorted(rng.choice(RENDER_FILES, 4,
+                                                  replace=False)), {}
+    for i in range(RENDER_FILES):
+        x = rng.standard_normal((SPEAKERS, n), dtype=np.float32) * 0.25
+        inputs += ["--input", os.path.join(files.dir, f"render-{i:02d}.wav")]
+        wavio.save(inputs[-1], x, SAMPLE_RATE)
+        if i in sampled:
+            refs[i] = files.reference(x)
+        del x
+    launches = {}
+    for label, extra in (("render_graph", ()),
+                         ("render_throughput", ("--throughput",))):
+        out_dir = os.path.join(files.dir, label)
+        mk.reset_launch_count()
+        captured = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(captured):
+            rc = shell_app.main(["render", *inputs, "--hrir", files.hrir,
+                                 "--eq", files.eq, "--output-dir", out_dir,
+                                 *extra])
+        seconds = time.perf_counter() - t0
+        launches[label] = {name: mk.launch_count(name) for name in KERNELS}
+        report = json.loads(captured.getvalue())
+        skip = 0 if extra else EQ_RAMP + BLOCK
+        errs = [rel_rms(wavio.load(report["rendered"][i]).audio[:, skip:],
+                        refs[i][:, skip:]) for i in sampled]
+        profile = report["profile"]
+        multiple = (profile["realtime_multiple"] if extra
+                    else profile["render"]["realtime_multiple"])
+        phase(label, card=smi, files=RENDER_FILES, seconds_each=RENDER_SECONDS,
+              rc=rc, equalizer=report["equalizer"], device=report["device"],
+              seconds=seconds, realtime_multiple=multiple, profile=profile,
+              launches=launches[label], sampled=[int(i) for i in sampled],
+              compared_from_sample=skip, rel_rms=errs)
+        used = "mac_kmajor_pages" if extra else "mac_kmajor"
+        if rc != 0 or not report["equalizer"] or report["device"] != "cuda:0":
+            raise AssertionError(f"{label}: rc {rc}, report {report}")
+        if not max(errs) <= CHAIN_TOL:
+            raise AssertionError(f"{label}: rel-RMS {errs} > {CHAIN_TOL}")
+        if launches[label][used] <= 0 or any(
+                launches[label][k] for k in KERNELS if k != used):
+            raise AssertionError(f"{label}: launches {launches[label]}, "
+                                 f"expected only {used}")
+        shutil.rmtree(out_dir)
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1147,12 +1773,25 @@ def main() -> None:
             rng, smi),
     }
     checkpoints = checkpoint_phase(wav, dev, rng, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = ServeFiles(tmp, wav, args.seed)
+        ring_server, launches["serve_ring"] = serve_phase(
+            "serve_ring", files, 1, args.seed, rng, smi)
+        serve_checkpoint_phase(ring_server, files, rng, smi)
+        del ring_server
+        _, launches["serve_paged"] = serve_phase(
+            "serve_paged", files, BLOCKS_PER_STEP, args.seed + 1, rng, smi)
+        cli_phase(files, rng, smi)
+        launches.update(render_phase(files, rng, smi))
     phase("done", seconds=time.perf_counter() - t_start)
 
     paths = {"bake_paged": launches[BLOCKS_PER_STEP],
              "bake_single_block": launches[1],
              "pool_ring": launches["pool"],
              "pool_paged": launches["pool_paged"],
+             **{path: launches[path] for path in (
+                 "serve_ring", "serve_paged", "render_graph",
+                 "render_throughput")},
              **{path: {name: counts[name]["total"] for name in KERNELS}
                 for path, counts in {**hotswap, **checkpoints}.items()}}
     # Each kernel's headline case: the single block at B=16384 (bake M=1)

@@ -51,7 +51,12 @@ def test_port_imports_and_bakes_with_jax_blocked():
             airwave_tpu_torch.__path__, "airwave_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        for name in ("runtime.stream_pool", "graph.renderer", "native"):
+        for name in ("runtime.stream_pool", "graph.renderer", "native",
+                     "shell.app", "shell.serve", "shell.wire_client",
+                     "shell.loadgen", "utils.checkpoint", "utils.profiling",
+                     "oracle.eq_oracle", "graph.frame_adapter",
+                     "graph.eq_processor", "graph.spatial_effect",
+                     "graph.effect_graph", "__main__"):
             assert "airwave_tpu_torch." + name in names, name
 
         from airwave_tpu_torch.models.bake import bake
@@ -68,6 +73,29 @@ def test_port_imports_and_bakes_with_jax_blocked():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "modules" in proc.stdout
+
+
+def test_cli_help_runs_with_jax_blocked():
+    """`python -m airwave_tpu_torch --help` (and each subcommand's help)
+    runs without jax."""
+    code = BLOCK_JAX + textwrap.dedent("""
+        import contextlib, io, runpy
+        for argv in (["--help"], ["serve", "--help"], ["render", "--help"],
+                     ["client", "--help"], ["status", "--help"]):
+            sys.argv = ["airwave_tpu_torch", *argv]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                try:
+                    runpy.run_module("airwave_tpu_torch", run_name="__main__")
+                except SystemExit as stop:
+                    assert stop.code == 0, (argv, stop.code)
+            assert "usage: airwave_tpu_torch" in out.getvalue(), argv
+        assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+        print("help ok")
+    """)
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "help ok" in proc.stdout
 
 
 def test_jax_block_is_effective():
