@@ -8,8 +8,8 @@ imported here) and copy them onto `device`. The *_to_numpy functions
 return the port's NamedTuples holding numpy arrays, with the reference's
 field names, from which the JAX NamedTuples are built field by field.
 
-The serving pool's carry (PoolState: conv and EQ carry, both tiers) moves
-the same way, and renderer_from_numpy turns a JAX RendererState (its conv
+The serving pool's carry (PoolState: conv and EQ carry, both tiers, and
+a grouped pool's G-tuples of them) moves the same way, and renderer_from_numpy turns a JAX RendererState (its conv
 params read as numpy arrays) into the port's, so a JAX pool's carry can be
 continued by the port's pool. Like every entry point of the port, the
 *_from_numpy functions put their tensors on the card unless given
@@ -107,11 +107,20 @@ def chain_state_to_numpy(state: ChainState) -> ChainState:
 
 
 def pool_state_from_numpy(state, device=DEFAULT_DEVICE) -> PoolState:
+    """A pool carry, one-profile or grouped (G-tuples of conv and EQ
+    carries), on `device`."""
+    if type(state.conv) is tuple:
+        return PoolState(
+            conv=tuple(conv_state_from_numpy(c, device) for c in state.conv),
+            eq=tuple(eq_state_from_numpy(e, device) for e in state.eq))
     return PoolState(conv=conv_state_from_numpy(state.conv, device),
                      eq=eq_state_from_numpy(state.eq, device))
 
 
 def pool_state_to_numpy(state: PoolState) -> PoolState:
+    if type(state.conv) is tuple:
+        return PoolState(conv=tuple(conv_state_to_numpy(c) for c in state.conv),
+                         eq=tuple(eq_state_to_numpy(e) for e in state.eq))
     return PoolState(conv=conv_state_to_numpy(state.conv),
                      eq=eq_state_to_numpy(state.eq))
 
@@ -173,11 +182,12 @@ def pool_snapshot_from_numpy(snap: dict, device=DEFAULT_DEVICE) -> dict:
     StreamPool.restore takes it: the carry as the port's NamedTuples on
     `device`, the EQ runtime's definitions and designs as the port's
     types; debt, attached lanes and flags as they are."""
-    return {**snap,
-            "state": pool_state_from_numpy(snap["state"], device),
-            "debt": np.asarray(snap["debt"], np.int64).copy(),
-            "attached": [int(s) for s in snap["attached"]],
-            "eq_runtime": eq_runtime_snapshot_convert(snap["eq_runtime"])}
+    return _convert_eq_runtimes(
+        {**snap,
+         "state": pool_state_from_numpy(snap["state"], device),
+         "debt": np.asarray(snap["debt"], np.int64).copy(),
+         "attached": [int(s) for s in snap["attached"]]},
+        _apo, _biquad_design)
 
 
 def pool_snapshot_to_numpy(snap: dict, apo, biquad_design) -> dict:
@@ -186,8 +196,20 @@ def pool_snapshot_to_numpy(snap: dict, apo, biquad_design) -> dict:
     JAX NamedTuples are built from them field by field), the EQ runtime's
     definitions and designs as the types of the given io.apo and
     biquad_design modules (pass the JAX package's)."""
-    return {**snap,
-            "state": pool_state_to_numpy(snap["state"]),
-            "debt": np.asarray(snap["debt"], np.int64).copy(),
-            "eq_runtime": eq_runtime_snapshot_convert(
-                snap["eq_runtime"], apo, biquad_design)}
+    return _convert_eq_runtimes(
+        {**snap,
+         "state": pool_state_to_numpy(snap["state"]),
+         "debt": np.asarray(snap["debt"], np.int64).copy()},
+        apo, biquad_design)
+
+
+def _convert_eq_runtimes(snap: dict, apo, biquad_design) -> dict:
+    """A pool snapshot with its EQ machine, and a grouped pool's per-group
+    `eq_runtimes`, converted to the types of `apo` and `biquad_design`."""
+    snap["eq_runtime"] = eq_runtime_snapshot_convert(snap["eq_runtime"], apo,
+                                                     biquad_design)
+    if "eq_runtimes" in snap:
+        snap["eq_runtimes"] = [eq_runtime_snapshot_convert(s, apo,
+                                                           biquad_design)
+                               for s in snap["eq_runtimes"]]
+    return snap

@@ -90,7 +90,8 @@
 //     zero columns.
 //
 // The single-block kernel has fixed instances for the steady O = 4, the
-// dual-bank O = 8 of a hot-swap round and the paged O = 32; any other O runs
+// dual-bank O = 8 of a hot-swap round, the three-half O = 12 of a second
+// swap while fades are pending and the paged O = 32; any other O runs
 // the generic kernel, which takes the columns 4 at a time and re-reads the
 // CTA's rows once per 4 columns. Every instance keeps each column's fmaf
 // chain in r order, so all routes agree bit for bit.
@@ -554,6 +555,10 @@ extern "C" int airwave_mac_kmajor(const float* fdl, const float* h, float* out,
     case 8:
       mac_kmajor_fixed<8><<<grid, kThreads, smem, s>>>(fdl, h, out, K, R, B,
                                                        accumulate);
+      break;
+    case 12:
+      mac_kmajor_fixed<12><<<grid, kThreads, smem, s>>>(fdl, h, out, K, R, B,
+                                                        accumulate);
       break;
     case 32:
       mac_kmajor_fixed<32><<<grid, kThreads, smem, s>>>(fdl, h, out, K, R, B,

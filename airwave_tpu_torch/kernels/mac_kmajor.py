@@ -92,6 +92,12 @@ def build() -> str:
     return _library()[1]
 
 
+def max_columns(R: int) -> int:
+    """The most output columns O whose h[k] ([O, R] floats) mac_kmajor
+    stages in its shared memory."""
+    return _MAX_SMEM_BYTES // (4 * int(R))
+
+
 def _check(fdl, h, out, accumulate):
     if fdl.dim() != 3 or h.dim() != 3:
         raise ValueError(f"fdl [K,R,B] and h [K,O,R] expected, got "

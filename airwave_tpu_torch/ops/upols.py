@@ -42,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from airwave_tpu_torch.kernels.mac_kmajor import mac_kmajor, mac_kmajor_pages
+from airwave_tpu_torch.kernels.mac_kmajor import (mac_kmajor, mac_kmajor_pages,
+                                                  max_columns)
 from airwave_tpu_torch.ops import fftmm
 
 
@@ -296,6 +297,21 @@ def _to_slot(X_planes: torch.Tensor, k_padded: int) -> torch.Tensor:
     return X_km.unsqueeze(2)
 
 
+def _mac_columns(fdl: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """mac_kmajor over h's output columns in runs whose h[k] fits the
+    kernel's shared memory (one launch for every steady and dual bank; a
+    fade bank of many halves takes several launches, each writing its rows
+    of the [O, Kp, B] output)."""
+    K, O, R = h.shape
+    run = max(4, max_columns(R) // 4 * 4)
+    if O <= run or fdl.device.type == "cpu":
+        return mac_kmajor(fdl, h)
+    out = torch.empty((O, K, fdl.shape[-1]), dtype=fdl.dtype, device=fdl.device)
+    for o in range(0, O, run):
+        mac_kmajor(fdl, h[:, o:o + run].contiguous(), out=out[o:o + run])
+    return out
+
+
 def _mac_irfft(fdl: torch.Tensor, h: torch.Tensor,
                synth: torch.Tensor) -> torch.Tensor:
     """Delay-line MAC + second-half inverse DFT:
@@ -305,7 +321,7 @@ def _mac_irfft(fdl: torch.Tensor, h: torch.Tensor,
     its [E*Q, Kp, B] output is the synthesis matmul's right operand as it
     lies, and y is returned as a [B, E, T] view of the [E, T, B] product."""
     Kp, S, P, C, B = fdl.shape
-    Y = mac_kmajor(fdl.view(Kp, S * P * C, B), h)       # [E*Q, Kp, B]
+    Y = _mac_columns(fdl.view(Kp, S * P * C, B), h)     # [E*Q, Kp, B]
     E = h.shape[1] // 2
     y = torch.matmul(synth, Y.view(E, 2 * Kp, B))       # [E, T, B]
     return y.permute(2, 0, 1)
@@ -504,20 +520,26 @@ def _check_same_bank_shape(old: ConvParams, new: ConvParams, what: str,
         )
 
 
-def xfade_conv_params(old: ConvParams, new: ConvParams) -> ConvParams:
-    """Dual-bank params for a crossfaded HRIR hot-swap: the two banks
-    stacked on the ear axis (E -> 2E; ears [0, E) OLD, [E, 2E) NEW), with
-    `new`'s analysis and synthesis weights.
+def xfade_conv_params(old, new: ConvParams) -> ConvParams:
+    """Fade-bank params for a crossfaded HRIR hot-swap: the banks stacked
+    on the ear axis (E -> 2E; ears [0, E) OLD, [E, 2E) NEW), with `new`'s
+    analysis and synthesis weights. `old` may be a sequence of H-1 banks
+    (E -> H*E, the NEW bank last): a pool whose lanes last played
+    different banks (a second swap while fades are pending) blends each
+    lane from its own half (xfade_blend's `src`).
 
     The delay line holds bank-independent input spectra, so a same-shape
     swap keeps the whole input history, and every step variant runs the
-    dual bank unchanged: it reads the delay line once and emits y2
-    [..., 2E, T], whose halves xfade_blend mixes per sample. The MAC's
-    output columns double for the fade round (O = 2*E*Q single-block,
-    M*2*E*Q paged); the delay-line read does not."""
-    _check_same_bank_shape(old, new, "crossfade",
-                           " (pad_conv_params can grow the smaller one)")
-    return ConvParams(Gflip2=torch.cat([old.Gflip2, new.Gflip2], dim=1),
+    fade bank unchanged: it reads the delay line once and emits y2
+    [..., H*E, T], whose halves xfade_blend mixes per sample. The MAC's
+    output columns grow H-fold for the fade round (O = H*E*Q single-block,
+    M*H*E*Q paged); the delay-line read does not."""
+    olds = [old] if isinstance(old, ConvParams) else list(old)
+    for o in olds:
+        _check_same_bank_shape(o, new, "crossfade",
+                               " (pad_conv_params can grow the smaller one)")
+    return ConvParams(Gflip2=torch.cat([o.Gflip2 for o in olds]
+                                       + [new.Gflip2], dim=1),
                       wf=new.wf, wi=new.wi)
 
 
@@ -544,16 +566,27 @@ def xfade_ramp(fade: int, total: int) -> np.ndarray:
 
 
 def xfade_blend(y2: torch.Tensor, ramp: torch.Tensor,
-                lane_mask: "torch.Tensor | None" = None) -> torch.Tensor:
-    """Mix a dual-bank step's halves: y2 [B, 2E, T] (or [B, M, 2E, T]) ->
-    [B, E, T] (or [B, M, E, T]), y = y_old*(1 - r) + y_new*r.
+                lane_mask: "torch.Tensor | None" = None,
+                src: "torch.Tensor | None" = None,
+                halves: int = 2) -> torch.Tensor:
+    """Mix a fade-bank step's halves: y2 [B, H*E, T] (or [B, M, H*E, T])
+    -> [B, E, T] (or [B, M, E, T]), y = y_old*(1 - r) + y_new*r, with H =
+    `halves` and the NEW half last.
 
     `ramp` is [T] for the single-block step, or [M*T] spanning the paged
     round. `lane_mask` [B] bool selects the lanes that blend; the others
     take the pure NEW half (lanes that already faded, or attached after
-    the swap)."""
-    E = y2.shape[-2] // 2
-    y_old, y_new = y2[..., :E, :], y2[..., E:, :]
+    the swap). `src` [B] int64 picks each lane's OLD half (the bank it
+    last played); None takes half 0 for every lane."""
+    E = y2.shape[-2] // halves
+    y_new = y2[..., (halves - 1) * E:, :]
+    if src is None:
+        y_old = y2[..., :E, :]
+    else:
+        parts = y2.unflatten(-2, (halves, E))     # [B, (M,) H, E, T]
+        pick = src.to(torch.int64).reshape((y2.shape[0],) + (1,) * (y2.dim() - 1))
+        y_old = torch.gather(parts, -3, pick.unsqueeze(-1).expand(
+            parts.shape[:-3] + (1,) + parts.shape[-2:])).squeeze(-3)
     r = ramp.to(y2.dtype)
     if y2.dim() == 4:
         r = r.reshape(1, y2.shape[1], 1, y2.shape[-1])

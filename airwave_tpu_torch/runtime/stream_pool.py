@@ -1,13 +1,12 @@
 """StreamPool: the multi-stream serving engine (PyTorch).
 
-Port of airwave_tpu/runtime/stream_pool.py for one profile: ragged
-per-stream ingest through the native C++ assembler, dense masked device
-steps, per-stream drain with the reference's underflow contract. One pool
-shares one (HRIR, EQ) preset set and sample rate across its lanes; the
-per-stream lifecycle is attach/push/pump/pull/detach. A stream advances
-only when a full step of its own input exists, and the shared-cursor ring
-step preserves idle lanes' carries exactly (masked slot write, then a
-per-lane roll that repays the alignment debt when the lane rejoins).
+Port of airwave_tpu/runtime/stream_pool.py: ragged per-stream ingest
+through the native C++ assembler, dense masked device steps, per-stream
+drain with the reference's underflow contract. The per-stream lifecycle is
+attach/push/pump/pull/detach. A stream advances only when a full step of
+its own input exists, and the shared-cursor ring step preserves idle
+lanes' carries exactly (masked slot write, then a per-lane roll that
+repays the alignment debt when the lane rejoins).
 
 Two serving tiers:
   - blocks_per_step=1 (default): zero added latency, the shared-cursor
@@ -18,6 +17,19 @@ Two serving tiers:
     re-aligned page-granularly at rejoin ("paged", "paged_all",
     "paged_id").
 
+Profile groups (multi-tenant serving): `StreamPool(profiles=[PoolProfile(
+renderer, eq), ...])` serves G (HRIR, EQ) profiles from one pool in one
+round. The lane space splits into G contiguous equal segments (attach
+takes `group=`), and each group carries its own lane state: the carry is a
+G-tuple of per-group ConvState/EqState (a one-profile pool keeps the bare
+ones, as the JAX pool does, so snapshots and serve files stay
+interchangeable). A round stages the harvest once at full width, then runs
+each group's ring or paged chain on its leading-axis slice, so every
+kernel launch reads its own group's contiguous delay line at the group's
+own lane and partition counts. Profiles share speaker count and block
+size; partition counts may differ. set_equalizer(group=g) crossfades only
+that group's lanes, set_renderer(group=g) swaps only that group's bank.
+
 EQ retargets (set_equalizer) run the 20 ms crossfade through the port's
 EqualizerRuntime, with the reference's semantics: lanes rendering during
 the ramp crossfade per sample, a lane idle across the whole ramp hears the
@@ -26,13 +38,19 @@ directly.
 
 HRIR hot-swaps (set_renderer) keep every lane's conv history: the delay
 line holds bank-independent input spectra, so each lane's next rendered
-round runs the dual bank (upols.xfade_conv_params) and blends old -> new
-per sample before the EQ. The carry's partition count is tracked apart
-from the renderer's: a shorter bank is zero-padded onto the carry, and the
+round runs a fade bank (upols.xfade_conv_params) and blends old -> new per
+sample before the EQ. Each lane fades from the bank it last played: after
+a second swap while fades are pending, the fade bank holds every such
+bank (original, intermediate, newest) and each lane picks its own old
+half, which is the ideal time-varying filter. On a grouped pool a fade
+round runs every group on a fade bank: groups not swapping run their
+cached self-crossfade, so one round shape serves any pattern of
+concurrent swaps. The carry's partition count is tracked apart from the
+renderer's: a shorter bank is zero-padded onto the carry, and the
 lane-debt modulus stays the carry's. `snapshot` and `restore` checkpoint
 the carry with the host state that interprets it (debt, attached lanes,
-the EQ machine); `restore(..., resize=True)` maps a snapshot of another
-lane count onto this pool.
+the EQ machines); `restore(..., resize=True)` maps a snapshot of another
+lane count onto this pool, group by group.
 
 Deliberate differences from the JAX pool:
   - No harvest buckets and no sentinel rows. XLA needed bucketed shapes to
@@ -50,16 +68,14 @@ Deliberate differences from the JAX pool:
   - The assembler is always the native one: if it cannot be built the
     pool raises (native.AssemblerBuildError), as a kernel that cannot be
     built raises.
+  - A second swap while a lane still owes the first fade blends that lane
+    from the bank it last played; the JAX pool blends it from the
+    intermediate bank, a step at that round boundary.
+  - Self-crossfade banks of groups that are not swapping are built once
+    per bank, not in every fade round.
 
-A one-profile pool is the JAX pool's single group: `groups` is 1,
-`group_of` maps every lane to group 0, `renderers` holds the one renderer,
-and `attach`, `set_equalizer` and `set_renderer` take `group` None or 0 (a
-serving frontend written against grouped pools drives it unchanged);
-`attach` and `set_equalizer` raise ValueError for any other group.
-
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-profile groups (`profiles=`, and so `set_renderer(..., group=g)` for a
-group other than 0) and the device mesh (`mesh=`).
+Not ported yet: the device mesh (`mesh=`), which raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -83,14 +99,33 @@ from airwave_tpu_torch.ops import eq_block, upols
 
 RING_VARIANTS = ("ring", "ring_all", "ring_id")
 PAGED_VARIANTS = ("paged", "paged_all", "paged_id")
+EARS = 2  # the pool renders binaural stereo
 
-_ROADMAP_GROUPS = "profile groups (ROADMAP Queue 1 item 14)"
 _ROADMAP_MESH = "multi-GPU pools (ROADMAP Queue 1 item 17)"
 
 
 class PoolState(NamedTuple):
-    conv: "upols.ConvState | upols.PagedConvState"
-    eq: eq_block.EqState
+    """The pool carry: a ConvState (ring) or PagedConvState (paged) and an
+    EqState, or on a grouped pool a G-tuple of each."""
+
+    conv: "upols.ConvState | upols.PagedConvState | tuple"
+    eq: "eq_block.EqState | tuple"
+
+
+class PoolProfile(NamedTuple):
+    """One tenant profile of a grouped pool: a prepared renderer and an
+    optional EQ preset (None = unity). A pool's profiles share speaker
+    count and block size (and lookahead on the paged tier); partition
+    counts may differ."""
+
+    renderer: RendererState
+    eq_definition: Optional[EqualizerDefinition] = None
+
+
+def _grouped(tree) -> bool:
+    """True for a grouped carry or params (a plain tuple of per-group
+    NamedTuples; a NamedTuple is one group's)."""
+    return type(tree) is tuple
 
 
 def _scatter_rows(blocks: torch.Tensor, idx: torch.Tensor,
@@ -106,24 +141,40 @@ def _lane_mask(idx: torch.Tensor, batch: int) -> torch.Tensor:
                        device=idx.device).index_fill_(0, idx, True)
 
 
-def _map_carry(fn, state) -> PoolState:
-    """The pool carry with fn applied to each tensor leaf (duck-typed, so a
-    snapshot's carry written by the JAX pool, with numpy leaves, maps too).
-    The ring cursor stays a host integer, kept as an np.int32 as the JAX
-    carry holds it."""
-    conv = state.conv
+def _conv_lanes(conv) -> int:
+    return (conv.pages[0] if hasattr(conv, "pages") else conv.fdl).shape[-1]
+
+
+def _map_conv(fn, conv):
+    """One conv carry with fn applied to each tensor leaf (duck-typed, so a
+    carry written by the JAX pool, with numpy leaves, maps too). The ring
+    cursor stays a host integer, kept as an np.int32 as the JAX carry
+    holds it."""
     if hasattr(conv, "pages"):
-        conv = upols.PagedConvState(pages=tuple(fn(p) for p in conv.pages))
-    else:
-        conv = upols.ConvState(fdl=fn(conv.fdl),
-                               write_pos=np.int32(np.asarray(conv.write_pos)))
-    eq = state.eq
-    return PoolState(conv, eq_block.EqState(
-        s_from=fn(eq.s_from), s_to=fn(eq.s_to), counter=fn(eq.counter)))
+        return upols.PagedConvState(pages=tuple(fn(p) for p in conv.pages))
+    return upols.ConvState(fdl=fn(conv.fdl),
+                           write_pos=np.int32(np.asarray(conv.write_pos)))
+
+
+def _map_eq(fn, eq) -> eq_block.EqState:
+    return eq_block.EqState(s_from=fn(eq.s_from), s_to=fn(eq.s_to),
+                            counter=fn(eq.counter))
+
+
+def _map_carry(fn, state) -> PoolState:
+    """The pool carry, grouped or not, with fn applied to each leaf."""
+    if _grouped(state.conv):
+        return PoolState(tuple(_map_conv(fn, c) for c in state.conv),
+                         tuple(_map_eq(fn, e) for e in state.eq))
+    return PoolState(_map_conv(fn, state.conv), _map_eq(fn, state.eq))
 
 
 def _carry_leaves(state: PoolState) -> list:
     """(name, tensor) for each tensor of a pool carry, in a fixed order."""
+    if _grouped(state.conv):
+        return [(f"group {g} {name}", t)
+                for g, (c, e) in enumerate(zip(state.conv, state.eq))
+                for name, t in _carry_leaves(PoolState(c, e))]
     conv = state.conv
     named = ([(f"page {a}", p) for a, p in enumerate(conv.pages)]
              if hasattr(conv, "pages") else [("fdl", conv.fdl)])
@@ -147,14 +198,14 @@ def _where_lanes(mask: torch.Tensor, new: eq_block.EqState,
     )
 
 
-def pool_step_body(conv_params: upols.ConvParams,
-                   eq_from: eq_block.EqParams, eq_to: eq_block.EqParams,
-                   state: PoolState, blocks: torch.Tensor, idx: torch.Tensor,
+def pool_step_body(conv_params, eq_from, eq_to, state: PoolState,
+                   blocks: torch.Tensor, idx: torch.Tensor,
                    transition_length: int, eq_enabled: bool,
                    eq_crossfading: bool, variant: str = "ring",
-                   operands: Optional[ChainOperands] = None,
+                   operands=None,
                    xfade_ramp: "torch.Tensor | None" = None,
-                   xfade_mask: "torch.Tensor | None" = None):
+                   xfade_mask: "torch.Tensor | None" = None,
+                   xfade_src: "torch.Tensor | None" = None):
     """One pool round: scatter the k harvested rows into the dense batch,
     step the (masked) chain, gather the harvested rows back.
 
@@ -166,92 +217,134 @@ def pool_step_body(conv_params: upols.ConvParams,
     free lanes' garbage is harmless (attach resets a lane), so the masking
     is skipped. "ring_id" additionally has idx == arange(B): the rows ARE
     the dense batch, so the scatter and gather are skipped too. The paged
-    variants are the same three for the M-block tier (_pool_round_paged).
+    variants are the same three for the M-block tier.
+
+    On a grouped pool conv_params, eq_from, eq_to, operands and the
+    state's conv and eq are G-tuples (_pool_round_grouped).
 
     `xfade_ramp` [round frames] with `xfade_mask` [B] bool runs a hot-swap
-    round (StreamPool.set_renderer): conv_params is the dual bank
-    (upols.xfade_conv_params, ears [0, E) OLD and [E, 2E) NEW) over the
-    unchanged delay line, and masked lanes blend old -> new per sample
-    before the EQ; the other lanes take the pure new half.
+    round (StreamPool.set_renderer): conv_params is a fade bank
+    (upols.xfade_conv_params, H halves of E ears, the NEW bank last) over
+    the unchanged delay line, and masked lanes blend from their old half
+    (`xfade_src` [B] int64, or half 0) to the new one per sample before the
+    EQ; the other lanes take the pure new half.
 
     The ring step writes state.conv's delay line in place
     (upols.conv_step): the state passed in is consumed. `operands` are the
     bank-derived MAC and synthesis operands (built when not given)."""
-    if variant in PAGED_VARIANTS:
-        return _pool_round_paged(conv_params, eq_from, eq_to, state, blocks,
-                                 idx, transition_length, eq_enabled,
-                                 eq_crossfading, variant, operands,
-                                 xfade_ramp, xfade_mask)
-    if variant not in RING_VARIANTS:
-        raise ValueError(f"unknown pool step variant {variant!r}")
-    conv_state, eq_state = state
-    B = conv_state.fdl.shape[-1]
-    identity = variant == "ring_id"
-    if identity and blocks.shape[0] != B:
-        raise ValueError(f"ring_id needs all {B} lanes, got {blocks.shape[0]}")
-    x = blocks if identity else _scatter_rows(blocks, idx, B)
-    mask = _lane_mask(idx, B) if variant == "ring" else None
-    bank, synth = (operands.bank, operands.synth) if operands else (None, None)
-    conv_state, y = upols.conv_step(conv_params, conv_state, x, bank, synth,
-                                    active_mask=mask)
-    if xfade_ramp is not None:
-        y = upols.xfade_blend(y, xfade_ramp, xfade_mask)
-    if eq_enabled:
-        new_eq, y = eq_block.eq_step(eq_from, eq_to, eq_state, y,
-                                     transition_length, eq_crossfading)
-        eq_state = new_eq if mask is None else _where_lanes(mask, new_eq,
-                                                            eq_state)
+    if _grouped(conv_params):
+        return _pool_round_grouped(conv_params, eq_from, eq_to, state,
+                                   blocks, idx, transition_length,
+                                   eq_enabled, eq_crossfading, variant,
+                                   operands, xfade_ramp, xfade_mask,
+                                   xfade_src)
+    paged = _check_variant(variant)
+    B = _conv_lanes(state.conv)
+    x, mask, identity = _stage(blocks, idx, B, variant)
+    conv, eq, y = _chain(conv_params, eq_from, eq_to, state.conv, state.eq,
+                         x, mask, paged, transition_length, eq_enabled,
+                         eq_crossfading, operands, xfade_ramp, xfade_mask,
+                         xfade_src)
     y_rows = y if identity else y.index_select(0, idx)
-    return PoolState(conv_state, eq_state), y_rows
+    return PoolState(conv, eq), y_rows
 
 
-def _pool_round_paged(conv_params, eq_from, eq_to, state, blocks, idx,
-                      transition_length, eq_enabled, eq_crossfading,
-                      variant, operands=None, xfade_ramp=None,
-                      xfade_mask=None):
-    """One multi-block round: blocks [k, S, M, T] -> y_rows [k, M, E, T].
+def _check_variant(variant: str) -> bool:
+    """True for a paged variant; raises for an unknown one."""
+    if variant not in RING_VARIANTS + PAGED_VARIANTS:
+        raise ValueError(f"unknown pool step variant {variant!r}")
+    return variant in PAGED_VARIANTS
 
-    The spatial stage is the bake path's paged step. In steady state
-    (eq_crossfading=False) the EQ's FIR and state drive are folded into the
-    synthesis weights (eq_block.eq_folded_paged_round); during a ramp the
-    plain synthesis runs and the M blocks go through eq_step in order.
-    A hot-swap round (xfade_ramp given) takes the plain path too: the
-    blended signal must drive the EQ, and the fold never materializes the
-    spatial output. "paged" preserves idle lanes by recycling their oldest
-    page."""
-    conv_state, eq_state = state
-    B = conv_state.pages[0].shape[-1]
-    M = blocks.shape[2]
-    identity = variant == "paged_id"
+
+def _stage(blocks: torch.Tensor, idx: torch.Tensor, B: int, variant: str):
+    """(dense input x [B, ...], lane mask or None, identity) of a round."""
+    identity = variant.endswith("_id")
     if identity and blocks.shape[0] != B:
-        raise ValueError(f"paged_id needs all {B} lanes, got {blocks.shape[0]}")
+        raise ValueError(f"{variant} needs all {B} lanes, got "
+                         f"{blocks.shape[0]}")
     x = blocks if identity else _scatter_rows(blocks, idx, B)
-    mask = _lane_mask(idx, B) if variant == "paged" else None
+    mask = _lane_mask(idx, B) if variant in ("ring", "paged") else None
+    return x, mask, identity
+
+
+def _chain(conv_params, eq_from, eq_to, conv_state, eq_state, x, mask, paged,
+           transition_length, eq_enabled, eq_crossfading, operands=None,
+           xfade_ramp=None, xfade_mask=None, xfade_src=None):
+    """One group's chain on its dense input: x [B, S, T] (ring) or
+    [B, S, M, T] (paged) -> (conv', eq', y [B, E, T] or [B, M, E, T]).
+
+    The paged steady state (eq_crossfading=False) folds the EQ's FIR and
+    state drive into the synthesis weights (eq_block.eq_folded_paged_round);
+    during a ramp the plain synthesis runs and the M blocks go through
+    eq_step in order. A hot-swap round (xfade_ramp given) takes the plain
+    path too: the blended signal must drive the EQ, and the fold never
+    materializes the spatial output. `mask` [B] preserves idle lanes (the
+    ring's slot read-back, the paged line's recycled oldest page)."""
     bank = operands.bank if operands else None
-    if eq_enabled and not eq_crossfading and xfade_ramp is None:
+    synth = operands.synth if operands else None
+    if paged and eq_enabled and not eq_crossfading and xfade_ramp is None:
         conv_state, new_eq, y = eq_block.eq_folded_paged_round(
             conv_params, eq_to, conv_state, eq_state, x, bank,
             operands.synth_folded if operands else None, active_mask=mask)
     else:
-        conv_state, y = upols.conv_step_paged(
-            conv_params, conv_state, x, bank,
-            operands.synth if operands else None, active_mask=mask)
+        step = upols.conv_step_paged if paged else upols.conv_step
+        conv_state, y = step(conv_params, conv_state, x, bank, synth,
+                             active_mask=mask)
         if xfade_ramp is not None:
-            y = upols.xfade_blend(y, xfade_ramp, xfade_mask)
+            y = upols.xfade_blend(y, xfade_ramp, xfade_mask, xfade_src,
+                                  halves=conv_params.num_ears // EARS)
         new_eq = eq_state
-        if eq_enabled:
+        if eq_enabled and paged:
             outs = []
-            for m in range(M):
+            for m in range(x.shape[2]):
                 new_eq, ym = eq_block.eq_step(eq_from, eq_to, new_eq, y[:, m],
                                               transition_length,
                                               eq_crossfading)
                 outs.append(ym)
             y = torch.stack(outs, dim=1)
+        elif eq_enabled:
+            new_eq, y = eq_block.eq_step(eq_from, eq_to, eq_state, y,
+                                         transition_length, eq_crossfading)
     if eq_enabled:
         eq_state = new_eq if mask is None else _where_lanes(mask, new_eq,
                                                             eq_state)
+    return conv_state, eq_state, y
+
+
+def _pool_round_grouped(conv_params, eq_from, eq_to, state, blocks, idx,
+                        transition_length, eq_enabled, eq_crossfading,
+                        variant, operands=None, xfade_ramp=None,
+                        xfade_mask=None, xfade_src=None):
+    """One round of a profile-grouped pool: G independent chains, each on
+    its own group's carry (lane b belongs to group b // (B/G)). The harvest
+    is staged once at the full lane space (scatter and mask), then each
+    group takes its leading-axis slice and runs the chain an ungrouped pool
+    of its lane count runs, so its MAC launch reads the group's own
+    contiguous delay line; the outputs are concatenated and the harvested
+    rows gathered back once."""
+    paged = _check_variant(variant)
+    G = len(conv_params)
+    Bg = _conv_lanes(state.conv[0])
+    x, mask, identity = _stage(blocks, idx, G * Bg, variant)
+    convs, eqs, outs = [], [], []
+    for g in range(G):
+        lanes = slice(g * Bg, (g + 1) * Bg)
+
+        def part(t, lanes=lanes):
+            return None if t is None else t[lanes]
+
+        conv, eq, y = _chain(conv_params[g], eq_from[g], eq_to[g],
+                             state.conv[g], state.eq[g], x[lanes],
+                             part(mask), paged, transition_length,
+                             eq_enabled, eq_crossfading,
+                             operands[g] if operands else None, xfade_ramp,
+                             part(xfade_mask), part(xfade_src))
+        convs.append(conv)
+        eqs.append(eq)
+        outs.append(y)
+    y = torch.cat(outs)
     y_rows = y if identity else y.index_select(0, idx)
-    return PoolState(conv_state, eq_state), y_rows
+    return PoolState(tuple(convs), tuple(eqs)), y_rows
 
 
 class _HostSlot:
@@ -278,6 +371,30 @@ class _HostSlot:
             self.event.synchronize()
 
 
+class _Bank:
+    """One group's active bank on the device (the renderer's params padded
+    to the carry's partition count) and the operands derived from it: the
+    MAC operand, the synthesis weights, the folded synthesis of the last
+    EQ target, and the self-crossfade fade bank, built when a fade round
+    first needs it and kept until the bank changes."""
+
+    def __init__(self, params: upols.ConvParams, mac: torch.Tensor,
+                 synth: torch.Tensor) -> None:
+        self.params, self.mac, self.synth = params, mac, synth
+        self.folded = (None, None)  # (eq params, synthesis with them folded)
+        self.self_fade: "tuple | None" = None  # (params, ChainOperands)
+
+
+class _Fade:
+    """A group's hot-swap fade in flight: the banks its pending lanes last
+    played (`olds`, each lane's index in StreamPool._xfade_src) and the
+    fade bank [olds..., new] with its operands."""
+
+    def __init__(self, olds: list, params: upols.ConvParams,
+                 operands: ChainOperands) -> None:
+        self.olds, self.params, self.operands = olds, params, operands
+
+
 class StreamPool:
     def __init__(
         self,
@@ -294,20 +411,32 @@ class StreamPool:
         device: "torch.device | str" = DEFAULT_DEVICE,
     ) -> None:
         """A pool of `max_streams` lanes on `device` (the card by default;
-        pass device="cpu" for the CPU). The renderer's conv params are
+        pass device="cpu" for the CPU). The renderers' conv params are
         moved to the device.
 
         `blocks_per_step=M > 1` is the throughput tier (module docstring):
         a lane advances only when M full blocks of its input exist, so
-        output latency grows to up to M blocks. It needs a renderer
-        prepared with lookahead=M. `mesh` and `profiles` are not ported
-        yet and raise NotImplementedError."""
-        if profiles is not None:
-            raise NotImplementedError(f"{_ROADMAP_GROUPS} is not ported yet")
+        output latency grows to up to M blocks. It needs renderers
+        prepared with lookahead=M.
+
+        `profiles`: a sequence of PoolProfile (or (renderer, eq) pairs),
+        mutually exclusive with renderer/eq_definition, makes a grouped
+        multi-tenant pool of len(profiles) groups; max_streams must divide
+        by it. `mesh` is not ported yet and raises NotImplementedError."""
         if mesh is not None:
             raise NotImplementedError(f"{_ROADMAP_MESH} is not ported yet")
-        if renderer is None:
-            raise TypeError("renderer is required")
+        if profiles is not None:
+            if renderer is not None or eq_definition is not None:
+                raise ValueError("pass either renderer/eq_definition or "
+                                 "profiles, not both")
+            profiles = [p if isinstance(p, PoolProfile) else PoolProfile(*p)
+                        for p in profiles]
+            if not profiles:
+                raise ValueError("profiles must be non-empty")
+        else:
+            if renderer is None:
+                raise TypeError("renderer is required (or pass profiles=)")
+            profiles = [PoolProfile(renderer, eq_definition)]
         self.device = resolve_device(device)
         apply_precision_policy()
         self.max_streams = int(max_streams)
@@ -318,48 +447,68 @@ class StreamPool:
         if self.blocks_per_step < 1:
             raise ValueError(f"blocks_per_step must be >= 1, got "
                              f"{blocks_per_step}")
-        self._check_renderer_lookahead(renderer)
-        self.renderer = renderer
+        self.groups = len(profiles)
+        if self.max_streams % self.groups:
+            raise ValueError(f"max_streams ({self.max_streams}) must divide "
+                             f"by the profile-group count ({self.groups})")
+        self.group_size = self.max_streams // self.groups
+        self.renderers = [p.renderer for p in profiles]
+        first = self.renderers[0]
+        for g, r in enumerate(self.renderers):
+            self._check_renderer_lookahead(r)
+            if (r.num_speakers, r.block_size) != (first.num_speakers,
+                                                  first.block_size):
+                raise ValueError(
+                    f"grouped profiles must share (speakers, block): group "
+                    f"0 has ({first.num_speakers}, {first.block_size}), "
+                    f"group {g} has ({r.num_speakers}, {r.block_size}); "
+                    f"partition counts (HRIR lengths) may differ, each "
+                    f"group carries its own delay line")
+        self.renderer = first
         self._k_padded = upols.padded_bin_count(self.block_size)
-        # The carry's partition count. After a crossfaded shorter-HRIR swap
-        # the active bank is the renderer's zero-padded onto the unchanged
-        # carry, so this may exceed the renderer's own count.
-        self._bank_partitions = renderer.partition_count
+        # Each group's carry partition count. After a crossfaded
+        # shorter-HRIR swap the active bank is the renderer's zero-padded
+        # onto the unchanged carry, so it may exceed the renderer's own.
+        self._bank_partitions = [r.partition_count for r in self.renderers]
         self._rebuild_conv_params()
-        # The hot-swap crossfade in flight: the dual bank and its operands,
-        # and per lane whether its next rendered round still owes the fade.
-        self._xfade_params: Optional[upols.ConvParams] = None
-        self._xfade_operands: Optional[ChainOperands] = None
+        # Hot-swap fades in flight ({group: _Fade}), and per lane whether
+        # its next rendered round still owes its fade and from which old
+        # half (an index into its group's _Fade.olds).
+        self._fades: Dict[int, _Fade] = {}
         self._xfade_pending = np.zeros(self.max_streams, bool)
+        self._xfade_src = np.zeros(self.max_streams, np.int64)
         self._xfade_ramp: Optional[torch.Tensor] = None
 
         M = self.blocks_per_step
-        speakers = renderer.num_speakers
+        speakers = first.num_speakers
         # Rings hold at least two full steps so a lane can buffer the next
         # round while one is in flight.
         capacity = block_size * max(int(ring_blocks), 2 * M)
         self.assembler = RaggedAssembler(max_streams, speakers, block_size,
                                          capacity=capacity, impl="native")
-        self._out = RaggedAssembler(max_streams, 2, block_size,
+        self._out = RaggedAssembler(max_streams, EARS, block_size,
                                     capacity=capacity, impl="native")
-        self.eq_runtime = EqualizerRuntime(sample_rate, block_size,
-                                           config.eq_state_dim, config,
-                                           device=self.device)
-        self._eq_enabled = eq_definition is not None
-        if eq_definition is not None:
-            self.eq_runtime.set_target(eq_definition)
+        self.eq_runtimes = [self._new_eq_runtime() for _ in profiles]
+        self.eq_runtime = self.eq_runtimes[0]  # the one-profile pool's
+        self._eq_enabled = any(p.eq_definition is not None for p in profiles)
+        for rt, p in zip(self.eq_runtimes, profiles):
+            if p.eq_definition is not None:
+                rt.set_target(p.eq_definition)
         # Lanes attached since the last device reset: attach is host
         # bookkeeping, and the zeroing of fresh lanes' carry rows is one
-        # masked device op at the next round (_flush_attach_resets).
+        # masked device op per group at the next round
+        # (_flush_attach_resets).
         self._reset_pending = np.zeros(self.max_streams, bool)
         self._state = self._fresh_state()
         self._attached: Dict[int, bool] = {}
         self._attached_mask = np.zeros(self.max_streams, bool)
         self._identity_idx = np.arange(self.max_streams, dtype=np.int32)
-        self._free = list(range(self.max_streams - 1, -1, -1))
+        q = self.group_size
+        self._free_by_group = [list(range((g + 1) * q - 1, g * q - 1, -1))
+                               for g in range(self.groups)]
         # debt[b] counts the cursor advances (ring) or rounds (paged) a
         # lane sat out since it last stepped; a harvested lane with debt
-        # not a multiple of the cycle is rolled into alignment first.
+        # not a multiple of its group's cycle is rolled into alignment.
         self._debt = np.zeros(self.max_streams, np.int64)
         # Rendered blocks whose output ring filled between the harvest-time
         # space check and delivery (an unlocked concurrent pull) stash here
@@ -367,17 +516,18 @@ class StreamPool:
         self._pending_out: Dict[int, deque] = {}
         frames = self.step_frames
         # Each upload slot: the harvested rows, their lanes, and a fade
-        # round's lane mask (a staged copy: the host updates _xfade_pending
-        # right after the round is queued).
+        # round's lane mask and old halves (staged copies: the host updates
+        # _xfade_pending right after the round is queued).
         self._uploads = [
             _HostSlot(self.device,
                       ((self.max_streams, speakers, frames), torch.float32),
                       ((self.max_streams,), torch.int64),
-                      ((self.max_streams,), torch.bool))
+                      ((self.max_streams,), torch.bool),
+                      ((self.max_streams,), torch.int64))
             for _ in range(2)]
         self._downloads = [
             _HostSlot(self.device,
-                      ((self.max_streams, 2, frames), torch.float32))
+                      ((self.max_streams, EARS, frames), torch.float32))
             for _ in range(2)]
         self._turn = 0
         self.rounds = 0
@@ -387,27 +537,68 @@ class StreamPool:
         self.fade_rounds = 0
         self.variant_rounds: Counter = Counter()
 
+    def _new_eq_runtime(self) -> EqualizerRuntime:
+        return EqualizerRuntime(self.sample_rate, self.block_size,
+                                self.config.eq_state_dim, self.config,
+                                device=self.device)
+
+    # --- banks -------------------------------------------------------------
+
+    def _pack(self, items):
+        """Per-group items as the step takes them: the one item of a
+        one-profile pool, a G-tuple on a grouped pool."""
+        items = tuple(items)
+        return items[0] if self.groups == 1 else items
+
     def _mac_bank(self, params: upols.ConvParams) -> torch.Tensor:
         if self._paged:
             return upols.paged_bank(params, self.blocks_per_step,
                                     self._k_padded)
         return upols.single_block_bank(params, self._k_padded)
 
-    def _rebuild_conv_params(self) -> None:
-        """The active bank from the renderer's params zero-padded to the
-        CARRY's partition count, with everything derived from it: the MAC
-        operand, the synthesis weights, the folded synthesis (rebuilt at
-        the next round) and the lane-debt modulus."""
-        self._conv_params = upols.ConvParams(*(
+    def _make_bank(self, g: int) -> _Bank:
+        params = upols.ConvParams(*(
             t.to(self.device) for t in upols.pad_conv_params(
-                self.renderer.conv_params, self._bank_partitions)))
-        self._bank = self._mac_bank(self._conv_params)
-        self._synth = upols.project_weights(self._conv_params, self._k_padded)
-        self._folded = (None, None)  # (eq params, synthesis with them folded)
-        # One full rotation of a lane's carry is the identity: n_pages
-        # rounds for the paged line, P2 cursor advances for the ring.
-        M = self.blocks_per_step
-        self._lane_cycle = self._bank_partitions // M
+                self.renderers[g].conv_params, self._bank_partitions[g])))
+        return _Bank(params, self._mac_bank(params),
+                     upols.project_weights(params, self._k_padded))
+
+    def _rebuild_conv_params(self, group: Optional[int] = None) -> None:
+        """Rebuild the active bank of `group` (or of every group) from its
+        renderer's params zero-padded to the CARRY's partition count, with
+        everything derived from it (a new _Bank, so its cached
+        self-crossfade goes too), and the per-lane debt modulus: one full
+        rotation of a lane's carry is the identity, n_pages rounds for the
+        paged line, P2 cursor advances for the ring."""
+        if group is None:
+            self._banks = [self._make_bank(g) for g in range(self.groups)]
+        else:
+            self._banks[group] = self._make_bank(group)
+        q, M = self.group_size, self.blocks_per_step
+        self._lane_cycles = np.repeat(
+            np.asarray(self._bank_partitions, np.int64) // M, q)
+
+    @property
+    def _conv_params(self):
+        """The active banks: one ConvParams, or a G-tuple on a grouped
+        pool."""
+        return self._pack(b.params for b in self._banks)
+
+    @property
+    def _xfade_params(self):
+        """The fade banks in flight: None when no fade is pending; the one
+        ConvParams of a one-profile pool, {group: ConvParams} on a grouped
+        pool."""
+        if not self._fades:
+            return None
+        if self.groups == 1:
+            return self._fades[0].params
+        return {g: f.params for g, f in self._fades.items()}
+
+    @property
+    def _lane_cycle(self) -> int:
+        """Group 0's debt modulus (every lane's on a one-profile pool)."""
+        return int(self._lane_cycles[0])
 
     @property
     def step_frames(self) -> int:
@@ -433,65 +624,100 @@ class StreamPool:
                 f"not divisible by blocks_per_step={self.blocks_per_step}"
             )
 
+    # --- the carry -----------------------------------------------------------
+
+    @property
+    def _state(self) -> PoolState:
+        """The carry: bare ConvState/EqState on a one-profile pool, G-tuples
+        of them on a grouped pool (the JAX pool's structure)."""
+        return PoolState(self._pack(self._conv), self._pack(self._eq))
+
+    @_state.setter
+    def _state(self, state: PoolState) -> None:
+        if _grouped(state.conv):
+            self._conv, self._eq = list(state.conv), list(state.eq)
+        else:
+            self._conv, self._eq = [state.conv], [state.eq]
+
+    @torch.inference_mode()
+    def _fresh_group_conv(self, g: int):
+        """A zeroed conv carry for one group's lanes at its carry's
+        partition count."""
+        S, P = self.renderer.num_speakers, self._bank_partitions[g]
+        if self._paged:
+            return upols.make_conv_state_paged(
+                self.group_size, S, P, self.block_size, self.blocks_per_step,
+                self.device)
+        return upols.make_conv_state(self.group_size, S, P, self.block_size,
+                                     self.device)
+
+    def _fresh_group_eq(self) -> eq_block.EqState:
+        return eq_block.make_eq_state(self.group_size, EARS,
+                                      self.config.eq_state_dim, self.device)
+
     @torch.inference_mode()
     def _fresh_state(self) -> PoolState:
-        """A zeroed carry at the carry's partition count."""
-        S, P = self.renderer.num_speakers, self._bank_partitions
-        if self._paged:
-            conv = upols.make_conv_state_paged(
-                self.max_streams, S, P, self.block_size, self.blocks_per_step,
-                self.device)
-        else:
-            conv = upols.make_conv_state(self.max_streams, S, P,
-                                         self.block_size, self.device)
-        return PoolState(conv=conv, eq=eq_block.make_eq_state(
-            self.max_streams, 2, self.config.eq_state_dim, self.device))
+        """A zeroed carry at each group's partition count."""
+        return PoolState(
+            self._pack(self._fresh_group_conv(g) for g in range(self.groups)),
+            self._pack(self._fresh_group_eq() for _ in range(self.groups)))
 
-    def _operands(self, eq_to: eq_block.EqParams) -> ChainOperands:
-        """The bank-derived operands of a round; the paged tier's folded
-        synthesis depends on the active EQ target and is rebuilt when it
-        changes."""
+    def _operands(self, eq_to: eq_block.EqParams,
+                  group: int = 0) -> ChainOperands:
+        """A group's bank-derived operands for a steady round; the paged
+        tier's folded synthesis depends on the group's EQ target and is
+        rebuilt when it changes."""
+        bank = self._banks[group]
         synth_folded = None
         if self._paged and self._eq_enabled:
-            params, synth_folded = self._folded
+            params, synth_folded = bank.folded
             if params is not eq_to:
                 synth_folded = upols.project_weights(
-                    self._conv_params, self._k_padded,
-                    eq_block.fold_post(eq_to))
-                self._folded = (eq_to, synth_folded)
-        return ChainOperands(self._bank, self._synth, synth_folded)
+                    bank.params, self._k_padded, eq_block.fold_post(eq_to))
+                bank.folded = (eq_to, synth_folded)
+        return ChainOperands(bank.mac, bank.synth, synth_folded)
 
-    # --- profile groups (one) -----------------------------------------------
+    def _self_fade(self, group: int) -> tuple:
+        """(params, operands) of the group's self-crossfade, the fade bank
+        of a group that is not swapping in a grouped fade round (its output
+        is its active bank's for any mask), built once per bank."""
+        bank = self._banks[group]
+        if bank.self_fade is None:
+            params = upols.xfade_conv_params(bank.params, bank.params)
+            bank.self_fade = (params, ChainOperands(
+                self._mac_bank(params), bank.synth, None))
+        return bank.self_fade
 
-    groups = 1
-
-    @property
-    def group_size(self) -> int:
-        """Lanes per profile group: every lane, in the one group."""
-        return self.max_streams
+    # --- profile groups ------------------------------------------------------
 
     def group_of(self, stream: int) -> int:
-        """Profile group owning a lane (lanes past the pool map past the
-        one group, which callers reject as out of range)."""
+        """Profile group owning a lane (contiguous equal segments; lanes
+        past the pool map past the last group)."""
         return int(stream) // self.group_size
 
+    def _segment(self, group: int) -> slice:
+        return slice(group * self.group_size, (group + 1) * self.group_size)
+
     @property
-    def renderers(self) -> list:
-        """Each group's renderer: the one renderer, following set_renderer."""
-        return [self.renderer]
+    def _free(self) -> list:
+        """Every free lane (leak checks, diagnostics)."""
+        return [s for free in self._free_by_group for s in free]
 
     def _check_group(self, group: Optional[int]) -> None:
-        if group not in (None, 0):
-            raise ValueError(f"group {group} out of range for 1 profile")
+        if group is not None and not 0 <= group < self.groups:
+            raise ValueError(f"group {group} out of range for {self.groups} "
+                             f"profiles")
 
     # --- stream lifecycle --------------------------------------------------
 
     def attach(self, group: int = 0) -> int:
-        """Claim a free lane (`group` must be 0: one profile)."""
+        """Claim a free lane in `group`'s segment."""
         self._check_group(group)
-        if not self._free:
-            raise RuntimeError("pool is full")
-        stream = self._free.pop()
+        free = self._free_by_group[group]
+        if not free:
+            raise RuntimeError("pool is full" if self.groups == 1
+                               else f"profile group {group} is full")
+        stream = free.pop()
         self._attached[stream] = True
         self._attached_mask[stream] = True
         self.assembler.reset_stream(stream)
@@ -509,7 +735,7 @@ class StreamPool:
         if self._attached.pop(stream, None):
             self._attached_mask[stream] = False
             self._xfade_pending[stream] = False
-            self._free.append(stream)
+            self._free_by_group[self.group_of(stream)].append(stream)
             self._pending_out.pop(stream, None)
             self.assembler.reset_stream(stream)
             self._out.reset_stream(stream)
@@ -517,103 +743,161 @@ class StreamPool:
     @torch.inference_mode()
     def _flush_attach_resets(self) -> None:
         """Zero the carry rows of every lane attached since the last flush,
-        as one masked device op."""
+        as one masked device op per group that has such lanes."""
         if not self._reset_pending.any():
             return
-        # COPY the mask: torch.from_numpy aliases the numpy buffer, which
-        # is cleared right below.
-        m = torch.from_numpy(self._reset_pending.copy()).to(self.device)
         reset = upols.conv_reset_paged if self._paged else upols.conv_reset
-        eq = eq_block.eq_reset(self._state.eq, m)
-        # A fresh lane hears the ACTIVE target directly: idle its counter so
-        # an in-flight ramp blends it at weight 1.0 on the 'to' cascade.
-        eq = eq._replace(counter=eq.counter.masked_fill(
-            m, eq_block.COUNTER_IDLE))
-        self._state = PoolState(conv=reset(self._state.conv, m), eq=eq)
+        for g in range(self.groups):
+            seg = self._reset_pending[self._segment(g)]
+            if not seg.any():
+                continue
+            # COPY the mask: torch.from_numpy aliases the numpy buffer,
+            # which is cleared right below.
+            m = torch.from_numpy(seg.copy()).to(self.device)
+            eq = eq_block.eq_reset(self._eq[g], m)
+            # A fresh lane hears the ACTIVE target directly: idle its
+            # counter so an in-flight ramp blends it at weight 1.0 on the
+            # 'to' cascade.
+            self._eq[g] = eq._replace(counter=eq.counter.masked_fill(
+                m, eq_block.COUNTER_IDLE))
+            self._conv[g] = reset(self._conv[g], m)
         self._reset_pending[:] = False
 
     # --- control -----------------------------------------------------------
 
     def set_equalizer(self, definition: Optional[EqualizerDefinition],
                       group: Optional[int] = None) -> None:
-        """Retarget the pool EQ (the 20 ms crossfade runs in the next
-        rounds). `None` on an EQ-less pool stays a no-op; `None` on an
-        active pool crossfades to unity and keeps the EQ in the step.
-        `group` must be None or 0 (one profile)."""
+        """Retarget the EQ (the 20 ms crossfade runs in the next rounds) of
+        `group`'s lanes, or of every group with group=None. `None` on an
+        EQ-less pool stays a no-op; `None` on an active pool crossfades to
+        unity and keeps the EQ in the step."""
         self._check_group(group)
         if definition is None and not self._eq_enabled:
             return
-        self.eq_runtime.set_target(definition)
+        targets = self.eq_runtimes if group is None else [
+            self.eq_runtimes[group]]
+        for rt in targets:
+            rt.set_target(definition)
         self._eq_enabled = True
+
+    def _swap_group(self, renderer: RendererState,
+                    group: Optional[int]) -> int:
+        """The group a set_renderer call swaps, after the JAX pool's
+        checks."""
+        first = self.renderers[0]
+        if self.groups == 1:
+            if group not in (None, 0):
+                raise ValueError(f"group {group} out of range for a "
+                                 f"single-profile pool")
+            if renderer.num_speakers != first.num_speakers:
+                raise ValueError("renderer speaker count must match the "
+                                 "pool's input layout")
+            return 0
+        if group is None:
+            raise ValueError("a grouped pool needs set_renderer(..., "
+                             "group=g)")
+        self._check_group(group)
+        if (renderer.num_speakers, renderer.block_size) != (
+                first.num_speakers, first.block_size):
+            raise ValueError(f"grouped swap must keep the pool's (speakers, "
+                             f"block) = ({first.num_speakers}, "
+                             f"{first.block_size})")
+        return group
 
     @torch.inference_mode()
     def set_renderer(self, renderer: RendererState,
                      group: Optional[int] = None,
                      crossfade: bool = True) -> bool:
-        """HRIR hot-swap. Returns True when the swap crossfaded (history
-        kept), False when it reset.
+        """HRIR hot-swap of `group`'s bank (required on a grouped pool;
+        None or 0 on a one-profile pool). Returns True when the swap
+        crossfaded (history kept), False when it reset.
 
-        With crossfade=True a bank that fits the carry (partition count at
-        most the carry's; a shorter bank is zero-padded onto it) keeps
-        every lane's conv history, and each attached lane's next rendered
-        round runs the dual bank, blending old -> new per sample over
-        min(20 ms, one round) before the EQ. Paused lanes fade when they
+        With crossfade=True a bank that fits the group's carry (partition
+        count at most the carry's; a shorter bank is zero-padded onto it)
+        keeps every lane's conv history, and each attached lane of the
+        group fades old -> new per sample over min(20 ms, one round) before
+        the EQ in its next rendered round. Paused lanes fade when they
         rejoin; lanes attached after the swap hear the new bank directly.
-        A second swap while fades are pending is newest-wins: pending lanes
-        re-arm toward the newest bank from the newer old half, as the JAX
-        pool does (a lane that never rendered the first fade starts its
-        blend from the intermediate bank, not from what it last played:
-        one round of cosmetic difference, not a state error, since the
-        carry is bank-independent). Alignment debt is untouched.
+        Each lane fades from the bank it last played: a second swap while
+        fades are pending keeps the pending lanes' old banks in the fade
+        bank beside the one the other lanes play. Alignment debt is
+        untouched.
 
-        A longer bank, or crossfade=False, resets the history and
-        reallocates the carry when its partition count changes (a zeroed
-        lane is rotation-invariant, so no lane owes alignment work).
-        `group` other than None or 0 needs profile groups, not ported."""
-        if group not in (None, 0):
-            raise NotImplementedError(
-                f"set_renderer(group={group}) needs {_ROADMAP_GROUPS}, which "
-                f"is not ported yet")
+        A longer bank, or crossfade=False, resets the group's history; its
+        carry is reallocated when its partition count changes (a zeroed
+        lane is rotation-invariant, so no lane owes alignment work)."""
         self._check_renderer_lookahead(renderer)
-        if renderer.num_speakers != self.renderer.num_speakers:
-            raise ValueError("renderer speaker count must match the pool's "
-                             "input layout")
+        g = self._swap_group(renderer, group)
         # Deferred attach zeroing lands first: a pending lane's garbage must
         # never be kept by a fade or carried into a reallocated carry.
         self._flush_attach_resets()
-        self.renderer = renderer
-        if crossfade and renderer.partition_count <= self._bank_partitions:
-            old_active = self._conv_params
-            self._rebuild_conv_params()  # padded onto the unchanged carry
-            self._xfade_params = upols.xfade_conv_params(old_active,
-                                                         self._conv_params)
-            self._xfade_operands = ChainOperands(
-                self._mac_bank(self._xfade_params), self._synth, None)
-            self._xfade_pending[:] = self._attached_mask
+        self.renderers[g] = renderer
+        if g == 0:
+            self.renderer = renderer
+        if crossfade and renderer.partition_count <= self._bank_partitions[g]:
+            old_active = self._banks[g].params
+            self._rebuild_conv_params(g)  # padded onto the unchanged carry
+            self._arm_fade(g, old_active)
             if self._xfade_ramp is None:
                 L = self.step_frames
                 fade = self.config.transition_length(self.sample_rate)
                 self._xfade_ramp = torch.from_numpy(
                     upols.xfade_ramp(min(fade, L), L)).to(self.device)
             return True
-        # Reset: fresh history, the carry re-sized to the new bank.
-        same_shape = renderer.partition_count == self._bank_partitions
-        self._bank_partitions = renderer.partition_count
-        self._clear_xfade()
-        self._rebuild_conv_params()
+        # Reset: fresh history, the group's carry re-sized to the new bank.
+        same_shape = renderer.partition_count == self._bank_partitions[g]
+        self._bank_partitions[g] = renderer.partition_count
+        self._clear_xfade(g)
+        self._rebuild_conv_params(g)
         if same_shape:
             reset = upols.conv_reset_paged if self._paged else upols.conv_reset
-            conv = reset(self._state.conv)
+            self._conv[g] = reset(self._conv[g])
         else:
-            conv = self._fresh_state().conv
-        self._state = PoolState(conv=conv, eq=self._state.eq)
-        self._debt[:] = 0
+            self._conv[g] = self._fresh_group_conv(g)
+        self._debt[self._segment(g)] = 0
         return False
 
-    def _clear_xfade(self) -> None:
-        """Drop the in-flight hot-swap fade."""
-        self._xfade_params = self._xfade_operands = None
-        self._xfade_pending[:] = False
+    def _arm_fade(self, g: int, old_active: upols.ConvParams) -> None:
+        """Mark every attached lane of group g to fade to its new active
+        bank, each from the bank it last played: a lane still owing an
+        earlier fade keeps that fade's old bank, every other lane played
+        `old_active`. The fade bank stacks those banks (one copy of each)
+        before the new one."""
+        seg = self._segment(g)
+        attached = self._attached_mask[seg]
+        pending = self._xfade_pending[seg] & attached
+        previous = self._fades.pop(g, None)
+        if not attached.any():
+            self._xfade_pending[seg] = False
+            return
+        olds: list = []
+
+        def half_of(params) -> int:
+            for i, p in enumerate(olds):
+                if p is params:
+                    return i
+            olds.append(params)
+            return len(olds) - 1
+
+        src = np.zeros(self.group_size, np.int64)
+        for lane in np.flatnonzero(pending):
+            src[lane] = half_of(previous.olds[self._xfade_src[seg][lane]])
+        if (attached & ~pending).any():
+            src[attached & ~pending] = half_of(old_active)
+        params = upols.xfade_conv_params(olds, self._banks[g].params)
+        self._fades[g] = _Fade(olds, params, ChainOperands(
+            self._mac_bank(params), self._banks[g].synth, None))
+        self._xfade_src[seg] = src
+        self._xfade_pending[seg] = attached
+
+    def _clear_xfade(self, group: Optional[int] = None) -> None:
+        """Drop the hot-swap fades in flight (of `group`, or all)."""
+        if group is None:
+            self._fades.clear()
+            self._xfade_pending[:] = False
+        else:
+            self._fades.pop(group, None)
+            self._xfade_pending[self._segment(group)] = False
 
     # --- checkpoint / resume -----------------------------------------------
 
@@ -621,24 +905,28 @@ class StreamPool:
     def snapshot(self, materialize: bool = True) -> dict:
         """A checkpoint of every lane's carry and of the host state that
         interprets it: alignment debt, the attached lanes, the EQ
-        crossfade machine. Ring contents (undelivered audio) are transient
-        and not captured. `restore` on a pool of the same construction
-        resumes bit for bit.
+        crossfade machines (`eq_runtimes`, one per group, on a grouped
+        pool). Ring contents (undelivered audio) are transient and not
+        captured. `restore` on a pool of the same construction resumes bit
+        for bit.
 
         materialize=True gives numpy leaves (the carry fetched to the
         host); materialize=False keeps device copies (one pass on the card,
         no host readback), for a caller that must not hold serving while
         gigabytes come back: copy under its lock, fetch outside it."""
         self._flush_attach_resets()  # a checkpoint never carries garbage
-        return {
+        snap = {
             "state": _map_carry(_to_host if materialize else torch.clone,
                                 self._state),
             "debt": self._debt.copy(),
             "attached": sorted(self._attached),
             "eq_runtime": self.eq_runtime.snapshot(),
             "eq_enabled": self._eq_enabled,
-            "groups": 1,
+            "groups": self.groups,
         }
+        if self.groups > 1:
+            snap["eq_runtimes"] = [rt.snapshot() for rt in self.eq_runtimes]
+        return snap
 
     def state_like(self, max_streams: int) -> dict:
         """The carry (and debt) a snapshot of this pool's construction at
@@ -646,77 +934,85 @@ class StreamPool:
         allocate nothing: what such a snapshot is checked against before
         restore(..., resize=True) maps its lanes in."""
         lanes = int(max_streams)
+        if lanes % self.groups:
+            raise ValueError(f"max_streams ({lanes}) must divide by the "
+                             f"{self.groups} profile groups")
+        per_group = lanes // self.groups
 
         def like(t: torch.Tensor, lane_axis: int) -> torch.Tensor:
             shape = list(t.shape)
-            shape[lane_axis] = lanes
+            shape[lane_axis] = per_group
             return torch.empty(shape, dtype=t.dtype, device="meta")
 
-        conv, eq = self._state
-        if self._paged:
-            conv = upols.PagedConvState(pages=tuple(like(p, -1)
-                                                    for p in conv.pages))
-        else:
-            conv = upols.ConvState(fdl=like(conv.fdl, -1),
-                                   write_pos=np.int32(conv.write_pos))
+        convs = self._pack(_map_conv(lambda t: like(t, -1), c)
+                           for c in self._conv)
+        eqs = self._pack(_map_eq(lambda t: like(t, 0), e) for e in self._eq)
         return {
-            "state": PoolState(conv, eq_block.EqState(*(like(t, 0)
-                                                        for t in eq))),
+            "state": PoolState(convs, eqs),
             "debt": torch.empty((lanes,), dtype=torch.int64, device="meta"),
         }
 
     def _resize_snapshot_lanes(self, snap: dict, state: PoolState,
                                debt: np.ndarray):
-        """Map a snapshot written at another lane count onto this pool:
-        attached lanes compact to the head of the lane space in ascending
-        old-id order (one gather per carry tensor); free lanes gather old
-        lane 0 as finite filler and are reset before any use. Returns
-        (state', debt', attached', lane_map {old id: new id})."""
+        """Map a snapshot written at another lane count onto this pool: per
+        profile group, attached lanes compact to the head of the group's
+        new segment in ascending old-id order (one gather per carry tensor);
+        free lanes gather the group's old lane 0 as finite filler and are
+        reset before any use. Returns (state', debt', attached',
+        lane_map {old id: new id})."""
         old_max = int(debt.shape[0])
+        if old_max % self.groups:
+            raise ValueError(f"snapshot lane count {old_max} does not divide "
+                             f"by the pool's {self.groups} profile groups")
+        old_q, new_q = old_max // self.groups, self.group_size
         attached_old = sorted(int(s) for s in snap["attached"])
         if any(not (0 <= s < old_max) for s in attached_old):
             raise ValueError(
                 f"snapshot attached streams out of range for its own lane "
                 f"count {old_max}: {attached_old}")
-        if len(attached_old) > self.max_streams:
-            raise ValueError(
-                f"cannot resize: snapshot group 0 has {len(attached_old)} "
-                f"attached lanes, resized pool fits {self.max_streams} per "
-                f"group: detach streams or size the pool to hold them")
-        idx = np.zeros(self.max_streams, np.int64)
-        idx[:len(attached_old)] = attached_old
-        lanes = torch.from_numpy(idx).to(self.device)
-        lane_map = {s: r for r, s in enumerate(attached_old)}
-        conv, eq = state
-        if hasattr(conv, "pages"):
-            conv = upols.PagedConvState(pages=tuple(
-                p.index_select(-1, lanes) for p in conv.pages))
-        else:
-            conv = upols.ConvState(fdl=conv.fdl.index_select(-1, lanes),
-                                   write_pos=conv.write_pos)
-        eq = eq_block.EqState(*(t.index_select(0, lanes) for t in eq))
+        per_group = [[s for s in attached_old if s // old_q == g]
+                     for g in range(self.groups)]
+        for g, lanes in enumerate(per_group):
+            if len(lanes) > new_q:
+                raise ValueError(
+                    f"cannot resize: snapshot group {g} has {len(lanes)} "
+                    f"attached lanes, resized pool fits {new_q} per group: "
+                    f"detach streams or size the pool to hold them")
+        convs = state.conv if _grouped(state.conv) else (state.conv,)
+        eqs = state.eq if _grouped(state.eq) else (state.eq,)
+        lane_map: dict = {}
+        new_convs, new_eqs = [], []
+        for g, lanes in enumerate(per_group):
+            idx = np.zeros(new_q, np.int64)
+            idx[:len(lanes)] = [s - g * old_q for s in lanes]
+            lane_map.update({s: g * new_q + r for r, s in enumerate(lanes)})
+            take = torch.from_numpy(idx).to(self.device)
+            new_convs.append(_map_conv(lambda t: t.index_select(-1, take),
+                                       convs[g]))
+            new_eqs.append(_map_eq(lambda t: t.index_select(0, take), eqs[g]))
         new_debt = np.zeros(self.max_streams, np.int64)
-        new_debt[:len(attached_old)] = debt[attached_old]
-        return (PoolState(conv, eq), new_debt, sorted(lane_map.values()),
-                lane_map)
+        for s_old, s_new in lane_map.items():
+            new_debt[s_new] = debt[s_old]
+        return (PoolState(self._pack(new_convs), self._pack(new_eqs)),
+                new_debt, sorted(lane_map.values()), lane_map)
 
     @torch.inference_mode()
     def restore(self, snap: dict, resize: bool = False) -> Optional[dict]:
         """Load a `snapshot()` (this pool's, or the JAX pool's through
         interop.pool_snapshot_from_numpy). With resize=True the snapshot may
-        come from a pool of another max_streams (the same renderer shape
-        and tier): attached lanes keep their exact history and compact
-        into this pool's lanes in ascending old-id order, and the
-        {old id: new id} map is returned for remapping per-lane bookkeeping
-        outside the pool; it raises if the attached lanes do not fit.
-        Returns None when no remap happened.
+        come from a pool of another max_streams (the same renderer shapes,
+        groups and tier): attached lanes keep their exact history and
+        compact into their group's new segment in ascending old-id order,
+        and the {old id: new id} map is returned for remapping per-lane
+        bookkeeping outside the pool; it raises if a group's attached lanes
+        do not fit. Returns None when no remap happened.
 
         Everything is checked before anything changes, so a bad snapshot
         leaves the pool as it was."""
         groups = int(snap.get("groups", 1))
-        if groups != 1:
+        if groups != self.groups:
             raise ValueError(f"snapshot has {groups} profile groups, pool "
-                             f"has 1")
+                             f"has {self.groups}")
         want = [(n, tuple(t.shape), t.dtype)
                 for n, t in _carry_leaves(self._state)]
         try:
@@ -734,22 +1030,24 @@ class StreamPool:
         if got != want:
             raise ValueError(f"snapshot shape/dtype mismatch: {got} vs pool "
                              f"{want}")
-        if not self._paged and not 0 <= int(state.conv.write_pos) < (
-                self._bank_partitions):
-            raise ValueError(f"snapshot ring cursor {state.conv.write_pos} "
-                             f"out of range for {self._bank_partitions} "
-                             f"partitions")
+        convs = state.conv if _grouped(state.conv) else (state.conv,)
+        for conv, parts in zip(convs, self._bank_partitions):
+            if not self._paged and not 0 <= int(conv.write_pos) < parts:
+                raise ValueError(f"snapshot ring cursor {conv.write_pos} out "
+                                 f"of range for {parts} partitions")
         if debt.shape != (self.max_streams,):
             raise ValueError(f"snapshot debt length {debt.shape} vs pool "
                              f"({self.max_streams},)")
         if any(not (0 <= s < self.max_streams) for s in attached):
             raise ValueError(f"snapshot attached streams out of range for "
                              f"max_streams={self.max_streams}: {attached}")
-        # The EQ machine is rebuilt on a scratch runtime first: a definition
-        # that does not design must fail here, before the pool changes.
-        EqualizerRuntime(self.sample_rate, self.block_size,
-                         self.config.eq_state_dim, self.config,
-                         device=self.device).restore(snap["eq_runtime"])
+        eq_snaps = (snap["eq_runtimes"] if self.groups > 1
+                    and "eq_runtimes" in snap else [snap["eq_runtime"]])
+        # The EQ machines are rebuilt on scratch runtimes first: a
+        # definition that does not design must fail here, before the pool
+        # changes.
+        for eq_snap in eq_snaps:
+            self._new_eq_runtime().restore(eq_snap)
 
         self._state = state
         self._debt[:] = debt
@@ -765,13 +1063,17 @@ class StreamPool:
         self._attached_mask[attached] = True
         if lane_map is not None:
             self._reset_pending[:] = ~self._attached_mask
-        self._free = [s for s in range(self.max_streams - 1, -1, -1)
-                      if s not in self._attached]
+        q = self.group_size
+        self._free_by_group = [
+            [s for s in range((g + 1) * q - 1, g * q - 1, -1)
+             if s not in self._attached]
+            for g in range(self.groups)]
         self._pending_out.clear()
         for s in range(self.max_streams):
             self.assembler.reset_stream(s)
             self._out.reset_stream(s)
-        self.eq_runtime.restore(snap["eq_runtime"])
+        for rt, eq_snap in zip(self.eq_runtimes, eq_snaps):
+            rt.restore(eq_snap)
         self._eq_enabled = bool(snap.get("eq_enabled", self._eq_enabled))
         return lane_map
 
@@ -787,25 +1089,41 @@ class StreamPool:
 
     def push(self, stream: int, chunk: np.ndarray) -> None:
         """chunk: [speakers, n], [layout_channels, n] (unmapped layout
-        channels are dropped) or [1, n] mono, duplicated."""
+        channels are dropped; a grouped pool maps them through the
+        stream's own group's renderer) or [1, n] mono, duplicated."""
         chunk = np.asarray(chunk, np.float32)
         if chunk.ndim == 1:
             chunk = chunk[None]
-        speakers = self.renderer.num_speakers
+        renderer = self.renderers[self.group_of(stream)]
+        speakers = renderer.num_speakers
         if chunk.shape[0] == 1 and speakers > 1:
             chunk = np.repeat(chunk, speakers, axis=0)
         else:
-            chunk = self.renderer.select_input(chunk)
+            chunk = renderer.select_input(chunk)
         self.assembler.push(stream, chunk)
 
     def push_many(self, streams, chunks: np.ndarray) -> None:
         """Batch ingest: chunks [k, C, n] onto k streams in one native call
         (all or nothing on ring space). C may be the speaker count, the
-        layout's channel count (unmapped channels drop) or 1 (mono)."""
+        layout's channel count (unmapped channels drop; a grouped pool
+        maps each row through its stream's group's renderer, one gather)
+        or 1 (mono)."""
         chunks = np.asarray(chunks, np.float32)
         speakers = self.renderer.num_speakers
         if chunks.shape[1] == 1 and speakers > 1:
             chunks = np.repeat(chunks, speakers, axis=1)
+        elif chunks.shape[1] != speakers and self.groups > 1:
+            g = np.asarray(streams, np.int64) // self.group_size
+            for gu in np.unique(g):
+                r = self.renderers[int(gu)]
+                if chunks.shape[1] != r.layout_channels:
+                    raise ValueError(
+                        f"chunk channel count {chunks.shape[1]} matches "
+                        f"neither the speaker count ({speakers}) nor group "
+                        f"{int(gu)}'s layout ({r.layout_channels})")
+            table = np.asarray([r.input_indices for r in self.renderers],
+                               np.int64)  # [G, speakers]
+            chunks = chunks[np.arange(len(g))[:, None], table[g]]
         elif (chunks.shape[1] == self.renderer.layout_channels
               and chunks.shape[1] != speakers):
             chunks = chunks[:, list(self.renderer.input_indices)]
@@ -822,25 +1140,30 @@ class StreamPool:
     def prewarm(self, include_hotswap: bool = False) -> None:
         """Build the kernel and load the cuBLAS paths before traffic: each
         step variant runs once (both EQ modes when the EQ is on) on a
-        throwaway state, and one lane roll. include_hotswap=True also runs
-        each variant of a hot-swap round, on a self-crossfade of the active
-        bank (the dual bank's shapes are those of any later same-carry
-        swap). The pool's own state, cursor, debt, fades and EQ machine are
+        throwaway state, and one lane roll per group. include_hotswap=True
+        also runs each variant of a hot-swap round on the groups'
+        self-crossfades (a fade bank's shapes are those of any later
+        same-carry swap; a grouped fade round runs every group dual). The
+        pool's own state, cursors, debt, fades and EQ machines are
         untouched."""
         if self.device.type == "cuda":
             mac_kmajor.build()
-        p = self.eq_runtime.active.params
+        p = self._pack(rt.active.params for rt in self.eq_runtimes)
         B, S = self.max_streams, self.renderer.num_speakers
         shape = ((B, S, self.blocks_per_step, self.block_size) if self._paged
                  else (B, S, self.block_size))
         blocks = torch.zeros(shape, device=self.device)
         idx = torch.arange(B, device=self.device)
         variants = PAGED_VARIANTS if self._paged else RING_VARIANTS
-        rounds = [(self._conv_params, self._operands(p), None, None)]
+        groups = range(self.groups)
+        rounds = [(self._conv_params,
+                   self._pack(self._operands(rt.active.params, g)
+                              for g, rt in enumerate(self.eq_runtimes)),
+                   None, None)]
         if include_hotswap:
-            dual = upols.xfade_conv_params(self._conv_params, self._conv_params)
-            rounds.append((dual, ChainOperands(self._mac_bank(dual),
-                                               self._synth, None),
+            fades = [self._self_fade(g) for g in groups]
+            rounds.append((self._pack(f[0] for f in fades),
+                           self._pack(f[1] for f in fades),
                            torch.zeros(self.step_frames, device=self.device),
                            torch.zeros(B, dtype=torch.bool,
                                        device=self.device)))
@@ -853,21 +1176,55 @@ class StreamPool:
                                    operands, ramp, mask)
         roll = (upols.conv_roll_lanes_paged if self._paged
                 else upols.conv_roll_lanes)
-        roll(self._fresh_state().conv, idx[:1], idx[:1])
+        for g in groups:
+            roll(self._fresh_group_conv(g), idx[:1], idx[:1])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _begin_eq_round(self, eq_state):
-        """Run the EQ control protocol for one round; returns (eq_state',
-        params_from, params_to, crossfading)."""
+    def _begin_eq_round(self, eq_states: list):
+        """Run every group's EQ control protocol for one round; returns
+        (eq_states', params_from, params_to, crossfading) with per-group
+        lists and one crossfading flag for the round (a group not mid-ramp
+        blends from == to, which its lanes' clipped counters make exact)."""
         # The pool is its own control thread: drain the retirement handoff
         # every round, or the single-slot backpressure wedges the third
         # and every later retarget.
-        rt = self.eq_runtime
-        rt.drain_retired_states()
-        eq_state, p_from, p_to, _ = rt.begin_block(eq_state)
-        crossfading = rt.is_transitioning or rt.pending_target is not None
-        return eq_state, p_from, p_to, crossfading
+        states, froms, tos = [], [], []
+        crossfading = False
+        for rt, eq_state in zip(self.eq_runtimes, eq_states):
+            rt.drain_retired_states()
+            eq_state, p_from, p_to, _ = rt.begin_block(eq_state)
+            states.append(eq_state)
+            froms.append(p_from)
+            tos.append(p_to)
+            crossfading = (crossfading or rt.is_transitioning
+                           or rt.pending_target is not None)
+        return states, froms, tos, crossfading
+
+    def _fade_round(self, slot: _HostSlot):
+        """(params, operands, mask, src) of a hot-swap round: each fading
+        group's fade bank, the cached self-crossfade of every other group
+        (one round shape for any pattern of concurrent swaps), the lanes
+        that blend and, when some group's fade bank has more than one old
+        half, each lane's old half (staged copies: the host changes the
+        arrays right after the round is queued)."""
+        banks = [(f.params, f.operands) if f is not None
+                 else self._self_fade(g)
+                 for g, f in ((g, self._fades.get(g))
+                              for g in range(self.groups))]
+        slot.arrays[2][:] = self._xfade_pending
+        mask = slot.tensors[2].to(self.device, non_blocking=True)
+        src = None
+        if any(len(f.olds) > 1 for f in self._fades.values()):
+            # Half 0 for the lanes of self-crossfading groups, whose
+            # _xfade_src may index an earlier, larger fade bank.
+            slot.arrays[3][:] = 0
+            for g in self._fades:
+                seg = self._segment(g)
+                slot.arrays[3][seg] = self._xfade_src[seg]
+            src = slot.tensors[3].to(self.device, non_blocking=True)
+        return (self._pack(b[0] for b in banks),
+                self._pack(b[1] for b in banks), mask, src)
 
     @torch.inference_mode()
     def pump(self, max_rounds: int = 64, on_deliver=None) -> int:
@@ -910,45 +1267,49 @@ class StreamPool:
                 up.arrays[1][:k] = indices
                 blocks, idx = (t[:k].to(self.device, non_blocking=True)
                                for t in up.tensors[:2])
-                # A hot-swap round if any harvested lane still owes its
-                # fade: the dual bank runs, pending lanes blend old -> new
-                # and the others take the new half. The mask goes up as a
-                # staged copy of _xfade_pending, which changes right below.
-                fading = (self._xfade_params is not None
-                          and self._xfade_pending[indices].any())
-                conv_params, ramp, mask = self._conv_params, None, None
-                if fading:
-                    conv_params, ramp = self._xfade_params, self._xfade_ramp
-                    up.arrays[2][:] = self._xfade_pending
-                    mask = up.tensors[2].to(self.device, non_blocking=True)
-                up.record()
                 if M > 1:
                     # [k, S, M*T] -> [k, S, M, T]: ring pops are frame-major
                     # per channel, so the view is free.
                     blocks = blocks.view(k, S, M, self.block_size)
-
-                eq_state, p_from, p_to, crossfading = self._begin_eq_round(
-                    self._state.eq)
+                eq_states, p_from, p_to, crossfading = self._begin_eq_round(
+                    self._eq)
+                # A hot-swap round if any harvested lane still owes its
+                # fade: the fade banks run, pending lanes blend old -> new
+                # and the others take the new half.
+                fading = bool(self._fades) and bool(
+                    self._xfade_pending[indices].any())
+                ramp = mask = src = None
+                if fading:
+                    conv_params, operands, mask, src = self._fade_round(up)
+                    ramp = self._xfade_ramp
+                else:
+                    conv_params = self._conv_params
+                    operands = self._pack(self._operands(p, g)
+                                          for g, p in enumerate(p_to))
+                up.record()
                 variant = self._variant(indices)
-                operands = (self._xfade_operands if fading
-                            else self._operands(p_to))
                 state, y_rows = pool_step_body(
-                    conv_params, p_from, p_to,
-                    PoolState(self._state.conv, eq_state), blocks, idx,
-                    self.eq_runtime.transition_length, self._eq_enabled,
-                    crossfading, variant, operands, ramp, mask)
+                    conv_params, self._pack(p_from), self._pack(p_to),
+                    PoolState(self._pack(self._conv), self._pack(eq_states)),
+                    blocks, idx, self.eq_runtime.transition_length,
+                    self._eq_enabled, crossfading, variant, operands, ramp,
+                    mask, src)
                 self._state = state
                 if fading:
                     self.fade_rounds += 1
                     self._xfade_pending[indices] = False
-                    if not (self._xfade_pending & self._attached_mask).any():
-                        self._clear_xfade()  # every lane has faded
-                self.eq_runtime.after_block(step_frames)
+                    live = self._xfade_pending & self._attached_mask
+                    for g in list(self._fades):
+                        if not live[self._segment(g)].any():
+                            del self._fades[g]  # every lane has faded
+                for rt in self.eq_runtimes:
+                    rt.after_block(step_frames)
                 self._debt[self._attached_mask] += 1
                 self._debt[indices] = 0
 
                 if M > 1:  # [k, M, E, T] -> [k, E, M*T] (channel planes)
-                    y_rows = y_rows.transpose(1, 2).reshape(k, 2, step_frames)
+                    y_rows = y_rows.transpose(1, 2).reshape(k, EARS,
+                                                            step_frames)
                 down.wait()
                 down.tensors[0][:k].copy_(y_rows, non_blocking=True)
                 down.record()
@@ -991,17 +1352,22 @@ class StreamPool:
         return f"{tier}_all"
 
     def _roll_rejoining(self, indices: np.ndarray) -> None:
-        """Re-align the harvested lanes that owe alignment debt: exactly
-        those lanes, in place on the carry."""
-        shift = self._debt[indices] % self._lane_cycle
+        """Re-align the harvested lanes that owe alignment debt (modulo
+        their group's cycle): exactly those lanes, in place on their
+        group's carry."""
+        shift = self._debt[indices] % self._lane_cycles[indices]
         rejoin = shift != 0
         if not rejoin.any():
             return
-        lanes = torch.from_numpy(indices[rejoin].astype(np.int64))
-        shifts = torch.from_numpy(shift[rejoin])
+        lanes, shifts = indices[rejoin].astype(np.int64), shift[rejoin]
         roll = (upols.conv_roll_lanes_paged if self._paged
                 else upols.conv_roll_lanes)
-        roll(self._state.conv, lanes.to(self.device), shifts.to(self.device))
+        of_group = lanes // self.group_size
+        for g in np.unique(of_group):
+            sel = of_group == g
+            local = torch.from_numpy(lanes[sel] - g * self.group_size)
+            roll(self._conv[g], local.to(self.device),
+                 torch.from_numpy(shifts[sel]).to(self.device))
         self.debt_rolls += 1
 
     def _deliver(self, indices: np.ndarray, slot: _HostSlot) -> None:
@@ -1056,12 +1422,19 @@ class StreamPool:
             b.shape[1] for b in self._pending_out.get(stream, ()))
 
     def stats(self) -> dict:
-        """Host-side counters only: reading them never touches the device."""
+        """Host-side counters only: reading them never touches the device.
+        `attached_per_group` and a per-group `eq_transitioning` list on a
+        grouped pool (None and one flag on a one-profile pool)."""
         attached = self._attached_mask
+        per_group = transitioning = None
+        if self.groups > 1:
+            per_group = [int(attached[self._segment(g)].sum())
+                         for g in range(self.groups)]
+            transitioning = [rt.is_transitioning for rt in self.eq_runtimes]
         return {
             "max_streams": self.max_streams,
             "attached": len(self._attached),
-            "attached_per_group": None,
+            "attached_per_group": per_group,
             "groups": self.groups,
             "blocks_per_step": self.blocks_per_step,
             "rounds": self.rounds,
@@ -1069,10 +1442,12 @@ class StreamPool:
             "render_errors": self.render_errors,
             "stashed_streams": len(self._pending_out),
             "lanes_in_debt": int(
-                (self._debt[attached] % self._lane_cycle != 0).sum()),
+                (self._debt[attached] % self._lane_cycles[attached]
+                 != 0).sum()),
             "debt_rolls": self.debt_rolls,
             "variant_rounds": dict(self.variant_rounds),
-            "eq_transitioning": self.eq_runtime.is_transitioning,
+            "eq_transitioning": (self.eq_runtime.is_transitioning
+                                 if transitioning is None else transitioning),
             "hotswap_fading": int((self._xfade_pending & attached).sum()),
             "fade_rounds": self.fade_rounds,
         }

@@ -4,7 +4,8 @@ Port of airwave_tpu/shell/app.py with the same subcommands, flags and JSON
 output, on the card by default:
 
   render   offline bake: input WAV(s) -> HRIR (+EQ) -> stereo WAV(s)
-  serve    TCP streaming render server (one-profile pool)
+  serve    TCP streaming render server (one profile, or grouped with
+           repeated --profile HRIR.wav[:EQ.txt])
   client   stream a WAV through a running server (deployment smoke check)
   status   environment and device summary
 
@@ -12,9 +13,8 @@ output, on the card by default:
 console script). `--device` names the torch device (default cuda:0) and
 `--cpu` means `--device cpu`; nothing falls back to the CPU when the card
 is missing. `presets` and `demo` are not ported yet (ROADMAP Queue 1),
-nor are grouped pools (`serve --profile`, item 14) or multi-GPU pools
-(`serve --mesh-devices`, item 17): those flags exit with a message naming
-the item.
+nor are multi-GPU pools (`serve --mesh-devices`, item 17): that flag exits
+with a message naming the item.
 
 One deliberate difference from the JAX CLI: restore_serve_checkpoint moves
 aside ANY unreadable checkpoint (truncated, empty leaves, bad header) and
@@ -33,7 +33,6 @@ from typing import List, Optional
 
 import numpy as np
 
-_ROADMAP_GROUPS = "grouped pools (ROADMAP Queue 1 item 14)"
 _ROADMAP_MESH = "multi-GPU pools (ROADMAP Queue 1 item 17)"
 
 
@@ -182,34 +181,50 @@ def cmd_render(args) -> int:
 
 def build_serve_pool(args):
     """Resolve serve-CLI args into a prewarmed StreamPool on the args'
-    device (cmd_serve wraps it in the server)."""
+    device (cmd_serve wraps it in the server): one profile from --hrir and
+    --eq, or a grouped pool of one group per --profile HRIR.wav[:EQ.txt],
+    in order (clients pick theirs with {"group": G})."""
     from airwave_tpu_torch.assets import channel_maps as cm
     from airwave_tpu_torch.graph.renderer import prepare_renderer
     from airwave_tpu_torch.io import wav as wav_io
-    from airwave_tpu_torch.runtime.stream_pool import StreamPool
+    from airwave_tpu_torch.runtime.stream_pool import PoolProfile, StreamPool
 
-    if getattr(args, "profile", None):
-        raise SystemExit(f"serve --profile needs {_ROADMAP_GROUPS}, which "
-                         f"the PyTorch port does not have yet")
     if getattr(args, "mesh_devices", 0):
         raise SystemExit(f"serve --mesh-devices needs {_ROADMAP_MESH}, which "
                          f"the PyTorch port does not have yet")
-    if not args.hrir:
-        raise SystemExit("--hrir is required")
+    specs = getattr(args, "profile", None) or []
+    if specs and (args.hrir or args.eq):
+        raise SystemExit("pass either --hrir/--eq or --profile, not both")
+    if not specs and not args.hrir:
+        raise SystemExit("one of --hrir or --profile is required")
     layout = {"stereo": cm.STEREO, "7.1": cm.SURROUND_7_1,
               "7.1.4": cm.ATMOS_7_1_4}[args.layout]
     blocks_per_step = getattr(args, "blocks_per_step", 1) or 1
     device = _device(args)
-    renderer = prepare_renderer(wav_io.load(args.hrir), layout,
-                                args.sample_rate, lookahead=blocks_per_step,
-                                device=device)
+
+    def prepare(path: str):
+        return prepare_renderer(wav_io.load(path), layout, args.sample_rate,
+                                lookahead=blocks_per_step, device=device)
+
+    kwargs = {}
+    if specs:
+        parsed = [spec.partition(":")[::2] for spec in specs]
+        # One load and one preparation per unique HRIR path (tenants often
+        # share a bank and differ in EQ). Differing HRIR lengths need no
+        # alignment: each group carries its own delay line.
+        renderers = {h: prepare(h) for h in dict.fromkeys(h for h, _ in parsed)}
+        kwargs["profiles"] = [
+            PoolProfile(renderers[h], _load_equalizer(eq or None))
+            for h, eq in parsed]
+    else:
+        kwargs.update(renderer=prepare(args.hrir),
+                      eq_definition=_load_equalizer(args.eq))
     pool = StreamPool(
         max_streams=args.max_streams,
         sample_rate=args.sample_rate,
-        renderer=renderer,
-        eq_definition=_load_equalizer(args.eq),
         blocks_per_step=blocks_per_step,
         device=device,
+        **kwargs,
     )
     # Load every round's kernels and cuBLAS paths before accepting traffic,
     # the crossfaded hot-swap rounds included: RenderServer.set_renderer
@@ -421,8 +436,10 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--hrir", help="HRIR WAV (single-profile pool)")
     serve.add_argument("--eq")
     serve.add_argument("--profile", action="append",
-                       help="HRIR.wav[:EQ.txt] for a grouped pool: not "
-                            "ported yet (ROADMAP Queue 1 item 14)")
+                       help="HRIR.wav[:EQ.txt], repeatable: serve a grouped "
+                            "multi-tenant pool, one profile group per flag "
+                            "in order (clients pick theirs with client "
+                            "--group); excludes --hrir/--eq")
     serve.add_argument("--host", default="127.0.0.1")
     serve.add_argument("--port", type=int, default=7711)
     serve.add_argument("--sample-rate", type=float, default=48_000.0)

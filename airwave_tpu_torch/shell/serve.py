@@ -38,8 +38,8 @@ Wire protocol (little-endian):
                       want_lane was set]
                      frames: uint32 n | float32 data[2*n]
 "group" (default 0) selects the client's profile group on a grouped
-multi-tenant pool; the port's pools have one group (grouped pools are
-ROADMAP Queue 1 item 14), so any other group is a protocol error.
+multi-tenant pool (StreamPool(profiles=...)); a group the pool does not
+have is a protocol error.
 "resume" continues a lane that survived a SERVER RESTART: when the server
 starts on a pool restored from a checkpoint (RenderServer(orphan_tokens=
 checkpoint's resume_tokens)), the restored attached lanes are ORPHANS —
@@ -217,8 +217,9 @@ class RenderServer:
 
     def set_equalizer(self, definition, group: Optional[int] = None) -> None:
         """Live EQ retarget, serialized against the pump thread. Streams
-        mid-render crossfade per the pool's ramp semantics. `group` is
-        None or 0 (the port's pools have one profile group)."""
+        mid-render crossfade per the pool's ramp semantics. On a grouped
+        pool, `group=g` retargets only that profile group's clients (None:
+        every group)."""
         with self._lock:
             self.pool.set_equalizer(definition, group=group)
 
@@ -228,10 +229,12 @@ class RenderServer:
         StreamPool.set_renderer). Serving pauses under the lock for the
         swap and, by default, for a prewarm when the new renderer's
         partition or speaker shape differs, so the first rounds after the
-        swap do not load new cuBLAS paths under traffic."""
+        swap do not load new cuBLAS paths under traffic. On a grouped pool
+        pass `group=g`; the shape compared is that group's."""
         with self._lock:
-            old = self.pool.renderer
-            self.pool.set_renderer(renderer, group=group)
+            g = group or 0
+            old = self.pool.renderers[g] if 0 <= g < self.pool.groups else None
+            self.pool.set_renderer(renderer, group=group)  # checks the group
             shape_changed = (
                 old.partition_count != renderer.partition_count
                 or old.num_speakers != renderer.num_speakers

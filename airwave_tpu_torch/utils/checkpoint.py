@@ -3,12 +3,13 @@
 The serving half of airwave_tpu/utils/checkpoint.py, on its raw container
 (magic | u64 header length | header JSON | 64-byte aligned leaf payloads).
 The files are interchangeable with the JAX package's: the header names the
-carry structure as JAX renders the same one-profile pytree (a small
-formatter over the port's NamedTuples stands in for jax.tree_util), the
-meta carries the same schema number and carry tag, and the leaves go to
-disk in JAX's flattening order (debt, the conv leaves, s_from, s_to,
-counter) with JAX's dtypes (the ring cursor, a Python int in the port's
-ConvState, as a 0-d int32). A checkpoint written by either package
+carry structure as JAX renders the same pytree, one-profile or grouped (a
+small formatter over the port's NamedTuples and tuples stands in for
+jax.tree_util), the meta carries the same schema number, carry tag and
+per-group EQ machines (`eq_runtimes`), and the leaves go to disk in JAX's
+flattening order (debt, each group's conv leaves, each group's s_from,
+s_to, counter) with JAX's dtypes (the ring cursor, a Python int in the
+port's ConvState, as a 0-d int32). A checkpoint written by either package
 restores the other's pool of the same construction bit for bit.
 
 Leaves are read with chunked os.preadv into preallocated buffers: the
@@ -60,8 +61,8 @@ def checkpoint_path(path: str) -> str:
 
 def _treedef_repr(tree: Any) -> str:
     """str(jax.tree_util.tree_structure(tree)) for the trees a pool
-    snapshot holds: dicts (keys sorted), NamedTuples, tuples of two or more
-    items and array leaves."""
+    snapshot holds: dicts (keys sorted), NamedTuples, tuples and array
+    leaves."""
     return f"PyTreeDef({_node_repr(tree)})"
 
 
@@ -73,7 +74,8 @@ def _node_repr(node: Any) -> str:
         children = ", ".join(_node_repr(c) for c in node)
         return f"CustomNode(namedtuple[{type(node).__name__}], [{children}])"
     if isinstance(node, tuple):
-        return "(" + ", ".join(_node_repr(c) for c in node) + ")"
+        inner = ", ".join(_node_repr(c) for c in node)
+        return f"({inner},)" if len(node) == 1 else f"({inner})"
     return "*"
 
 
@@ -103,21 +105,44 @@ def _carry_format(state: Any) -> str:
     return ",".join(sorted(set(_key_names(state))))
 
 
+def _unflatten(like: Any, leaves) -> Any:
+    """The tree of `like`'s structure with its leaves taken in order from
+    the iterator `leaves` (the inverse of _leaves)."""
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(c, leaves) for c in like))
+    if isinstance(like, tuple):
+        return tuple(_unflatten(c, leaves) for c in like)
+    return next(leaves)
+
+
+def _map_convs(fn, state: Any) -> Any:
+    """A pool carry (one-profile or grouped) with fn applied to each conv
+    carry."""
+    conv = state.conv
+    conv = (tuple(fn(c) for c in conv) if type(conv) is tuple else fn(conv))
+    return type(state)(conv, state.eq)
+
+
+def _cursor_leaf(conv):
+    """A ring carry with its cursor as the 0-d int32 leaf JAX stores."""
+    if hasattr(conv, "pages"):
+        return conv
+    return upols.ConvState(fdl=conv.fdl,
+                           write_pos=np.asarray(int(conv.write_pos), np.int32))
+
+
 def _host_tree(snap_state: Any, debt: Any) -> dict:
     """{"debt", "state"} with every leaf a numpy array of JAX's dtype: the
-    ring cursor as a 0-d int32, tensors fetched to the host."""
+    ring cursors as 0-d int32, tensors fetched to the host."""
     def host(leaf):
         if isinstance(leaf, torch.Tensor):
             return leaf.detach().cpu().numpy()
         return np.asarray(leaf)
 
-    conv, eq = snap_state
-    if hasattr(conv, "pages"):
-        conv = upols.PagedConvState(pages=tuple(host(p) for p in conv.pages))
-    else:
-        conv = upols.ConvState(fdl=host(conv.fdl),
-                               write_pos=np.asarray(int(conv.write_pos), np.int32))
-    state = type(snap_state)(conv, type(eq)(*(host(t) for t in eq)))
+    state = _map_convs(_cursor_leaf, snap_state)
+    state = _unflatten(state, iter([host(x) for x in _leaves(state)]))
     return {"debt": np.asarray(debt, np.int64), "state": state}
 
 
@@ -129,11 +154,7 @@ def _expected_leaves(pool, lanes: Optional[int]) -> tuple:
     else:
         like = pool.state_like(lanes)
         state, debt = like["state"], like["debt"]
-    conv = state.conv
-    if not hasattr(conv, "pages"):
-        conv = upols.ConvState(fdl=conv.fdl,
-                               write_pos=np.zeros((), np.int32))
-    tree = {"debt": debt, "state": type(state)(conv, state.eq)}
+    tree = {"debt": debt, "state": _map_convs(_cursor_leaf, state)}
 
     def spec(leaf):
         dtype = (torch.empty((), dtype=leaf.dtype).numpy().dtype
@@ -363,6 +384,9 @@ def save_pool_snapshot(path: str, snap: dict) -> None:
         "groups": int(snap.get("groups", 1)),
         "eq_runtime": _pack_eq_runtime(snap["eq_runtime"]),
     }
+    if "eq_runtimes" in snap:
+        meta["eq_runtimes"] = [_pack_eq_runtime(s)
+                               for s in snap["eq_runtimes"]]
     if "resume_tokens" in snap:
         meta["resume_tokens"] = {str(k): str(v)
                                  for k, v in snap["resume_tokens"].items()}
@@ -429,25 +453,21 @@ def load_pool_snapshot(path: str, pool, lanes: Optional[int] = None) -> dict:
                 f"lanes=snapshot_lane_count(path)) then restore(..., "
                 f"resize=True). Saved {data.treedef_repr} {got}, expected "
                 f"{_treedef_repr(like)} {specs}")
-        leaves = [data.leaf(i) for i in range(len(got))]
-    debt, *conv_leaves = leaves[:-3]
-    s_from, s_to, counter = leaves[-3:]
-    if hasattr(like["state"].conv, "pages"):
-        conv = upols.PagedConvState(pages=tuple(conv_leaves))
-    else:
-        conv = upols.ConvState(fdl=conv_leaves[0],
-                               write_pos=np.int32(conv_leaves[1]))
-    state_type = type(like["state"])
-    eq_type = type(like["state"].eq)
+        tree = _unflatten(like, iter([data.leaf(i) for i in range(len(got))]))
+    state = _map_convs(lambda c: c if hasattr(c, "pages") else upols.ConvState(
+        fdl=c.fdl, write_pos=np.int32(c.write_pos)), tree["state"])
     try:
         snap = {
-            "state": state_type(conv, eq_type(s_from, s_to, counter)),
-            "debt": debt,
+            "state": state,
+            "debt": tree["debt"],
             "attached": [int(s) for s in meta["attached"]],
             "eq_enabled": bool(meta["eq_enabled"]),
             "groups": int(meta["groups"]),
             "eq_runtime": _unpack_eq_runtime(meta["eq_runtime"]),
         }
+        if "eq_runtimes" in meta:
+            snap["eq_runtimes"] = [_unpack_eq_runtime(s)
+                                   for s in meta["eq_runtimes"]]
         if "resume_tokens" in meta:
             snap["resume_tokens"] = {int(k): str(v) for k, v in
                                      meta["resume_tokens"].items()}

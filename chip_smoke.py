@@ -21,7 +21,12 @@ script's elapsed seconds):
      hot-swap rounds' dual-bank shapes (mac_kmajor at O=8, B=8192 and
      16384; mac_kmajor_pages at O=64) are timed in turns with the routes
      the dispatch took before it had them (the generic kernel, 16 columns
-     per pass), which they equal bit for bit;
+     per pass), which they equal bit for bit; and the grouped pools'
+     per-group shapes (mac_kmajor at B=2048 with the long and the short
+     bank's R, mac_kmajor_pages at B=4096 with 3 and 2 pages) at the
+     steady O, the uniform all-dual fade O and the three-half fade bank's
+     O (12, its own instance timed in turns with the generic kernel and
+     equal to it bit for bit, and 96);
   4. bake: models.bake.bake at full width (B=16384 streams, S=2, T=512, a
      synthetic 4320-tap HRIR bank, a 10-filter EQ) over 32 blocks with
      blocks_per_step=8 and 1; the outputs are finite and non-silent, the two
@@ -66,7 +71,20 @@ script's elapsed seconds):
      pool that then delivers the same audio as the uninterrupted one, bit
      for bit; on the ring tier also a restore(..., resize=True) into 4096
      lanes after half the lanes detach; the snapshot's bytes and seconds;
- 13. serve_ring: the serve CLI's path in process (shell.app.build_serve_pool,
+ 13. pool_grouped, pool_grouped_paged: StreamPool(profiles=...) of 4
+     groups (two 4320-tap banks, a 2000-tap one, four 10-filter EQs) on
+     8192 ring lanes and 16384 paged lanes: ragged rounds, swaps of groups
+     0 and 2 landing in one round, a second swap of group 0 while its
+     paused lane still owes the first fade (the three-half fade bank), a
+     retarget of group 1's EQ, saturated rounds; 2 sampled lanes per group
+     within 1e-5 of the float64 time-varying reference through their own
+     banks and EQ; 4 MAC launches a round (one per group, at the steady,
+     dual or three-half O); a snapshot restored bit for bit; on the ring
+     tier a resize into 4096 lanes, per group; the saturated grouped
+     device round (steady and fade) in CUDA-event time in turns with the
+     ungrouped pool's at the same lane count, the full round's host share
+     and the peak memory;
+ 14. serve_ring: the serve CLI's path in process (shell.app.build_serve_pool,
      restore_serve_checkpoint, RenderServer with the selector data plane)
      on a 1032-lane ring pool with the seeded 14-channel 4320-frame WAV and
      the 10-filter EQ as files; 1024 clients of the port's load generator
@@ -79,19 +97,24 @@ script's elapsed seconds):
      calls under the load (the card's and the pump thread's busy shares,
      ms per round, the pump thread's top host ops; for the record only),
      and mac_kmajor launched on the path;
- 14. serve_paged: the same at --blocks-per-step 8 (mac_kmajor_pages);
- 15. serve_checkpoint: on the loaded ring server a client streams half its
+ 15. serve_paged: the same at --blocks-per-step 8 (mac_kmajor_pages);
+ 16. serve_checkpoint: on the loaded ring server a client streams half its
      signal, the server saves its checkpoint (bytes and seconds), the client
      streams the rest (the uninterrupted twin); a fresh pool restored from
      the file through restore_serve_checkpoint serves the same lane's rest
      to a client resuming with its token, bit for bit the twin's; a
      truncated copy of the file starts a pool fresh and is moved aside;
- 16. cli: `python -m airwave_tpu_torch serve` as a process (its listening
+ 17. cli: `python -m airwave_tpu_torch serve` as a process (its listening
      line read), `... client` on a WAV (within 1e-5 of float64 past the EQ's
      20 ms activation ramp), SIGINT to the server (it writes its
      checkpoint), a restart on that checkpoint (restored_checkpoint true),
      and `... status`;
- 17. render: shell.app.main(["render", ...]) on 16 stereo 30 s WAVs with the
+ 18. serve_grouped: `python -m airwave_tpu_torch serve --profile
+     A.wav:eq1.txt --profile B.wav:eq2.txt` as a process, two checking
+     clients in each group within 1e-5 of float64 through their group's
+     bank and EQ, SIGINT (the grouped checkpoint is written) and a restart
+     that restores it (profile_groups 2);
+ 19. render: shell.app.main(["render", ...]) on 16 stereo 30 s WAVs with the
      EQ, on the graph path (BinauralEngine behind the frame adapter, the
      device EQ; mac_kmajor) and with --throughput (the bake at M=8;
      mac_kmajor_pages): 4 sampled outputs within 1e-5 of float64 (the graph
@@ -131,12 +154,12 @@ from airwave_tpu_torch.io import wav as wavio
 from airwave_tpu_torch.kernels import mac_kmajor as mk
 from airwave_tpu_torch.models.bake import bake
 from airwave_tpu_torch.models.binaural import (BinauralChain, BinauralEngine,
-                                               ChainOperands, ChainState,
-                                               chain_step_fn,
+                                               ChainState, chain_step_fn,
                                                make_chain_operands)
 from airwave_tpu_torch.ops import biquad_design as bd
 from airwave_tpu_torch.ops import eq_block, upols
-from airwave_tpu_torch.runtime.stream_pool import StreamPool, pool_step_body
+from airwave_tpu_torch.runtime.stream_pool import (PoolProfile, StreamPool,
+                                                   pool_step_body)
 from airwave_tpu_torch.shell import app as shell_app
 from airwave_tpu_torch.shell.serve import RenderServer
 from airwave_tpu_torch.shell.wire_client import (_LEN, _read_exact,
@@ -180,6 +203,25 @@ HOTSWAP_SCHEDULE = {
 }
 CHECKPOINT_ROUNDS = {1: (4, 6), BLOCKS_PER_STEP: (2, 3)}  # (before, after)
 RESIZE_LANES = POOL_LANES[1] // 2
+# Grouped pools: GROUPS profile groups over POOL_LANES[M] lanes. Group g
+# starts on bank GROUPED_BANKS[g] (indices into the phase's banks: two
+# 4320-tap banks, a SHORT_TAPS one, a second short one and a third long one)
+# with the 10-filter EQ at gain scale GROUPED_EQ_SCALES[g]. Traffic per
+# tier as HOTSWAP_SCHEDULE, with dicts for swaps ({group: bank}) and "e"
+# for the retarget of group 1's EQ to scale GROUPED_EQ_SCALES[-1]; the
+# rounds in which the paused lane (in group 0) is not fed.
+GROUPS = 4
+GROUPED_BANKS = (0, 1, 2, 0)
+GROUPED_EQ_SCALES = (1.0, 0.5, -1.0, 1.5, -0.5)
+GROUPED_SCHEDULE = {
+    1: (["r"] * 6 + [{0: 1, 2: 3}] + ["r"] * 3 + [{0: 4}] + ["r"] * 3
+        + ["e"] + ["f"] * 3 + ["r"] * 2 + ["f"], range(3, 11)),
+    BLOCKS_PER_STEP: (["r"] * 3 + [{0: 1, 2: 3}] + ["r"] * 2 + [{0: 4}]
+                      + ["r"] * 2 + ["e"] + ["f"] * 2 + ["r", "f"],
+                      range(2, 6)),
+}
+GROUPED_CHECK_ROUNDS = 3    # ragged rounds after a snapshot or a resize
+SERVE_GROUPED_FRAMES = 12 * BLOCK + 77
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SERVE_LANES = 1032          # the serve CLI's pool: the clients and 8 spare
@@ -434,11 +476,11 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
     # O = 64 for the paged round. Each is timed in turns with the route the
     # dispatch took before it had these shapes (the generic kernel; 16
     # columns per pass over the pages), which it must equal bit for bit.
-    def dual(kernel, shape, new, old, args):
+    def dual(kernel, shape, new, old, args, label="dual bank"):
         equal, diff = torch.equal(new(), old()), (new() - old()).abs().max().item()
         turns = [cuda_ms(f, 20) for f in (old, new, new, old)]
         equal_plain = torch.equal(new(), args[0]())
-        measure(kernel, f"dual bank {shape}", new, *args,
+        measure(kernel, f"{label} {shape}", new, *args,
                 ms=(turns[1] + turns[2]) / 2, ms_turns=turns[1:3],
                 previous_route_ms=(turns[0] + turns[3]) / 2,
                 previous_route_ms_turns=[turns[0], turns[3]],
@@ -476,6 +518,53 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
                 2 * n * Kp * R * O * BATCH)))
     del pages, bank, stacked
     torch.cuda.empty_cache()
+
+    # The grouped pools' per-group launches (GROUPS groups: 2048 lanes each
+    # on the ring tier, 4096 on the paged tier), for the long bank (4320
+    # taps: P2 = 10, 3 pages) and the short one (SHORT_TAPS: P2 = 5, 2
+    # pages), at the steady O, the fade round's uniform all-dual O and the
+    # three-half fade bank's O (a second swap while a fade is pending; the
+    # long bank only, as the phases run it). O = 12 has its own instance,
+    # timed in turns with the generic kernel it replaces in the dispatch.
+    ring_b = POOL_LANES[1] // GROUPS
+    for R, halves in ((40, (1, 2, 3)), (20, (1, 2))):
+        for h_count in halves:
+            O = h_count * EARS * 2
+            fdl, h = tensor((Kp, R, ring_b)), tensor((Kp, O, R))
+            shape = f"single_block K={Kp} R={R} O={O} B={ring_b}"
+            args = (lambda: mk.mac_kmajor_ref(fdl, h),
+                    lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
+                    lambda: torch.einsum("krb,kor->okb", fdl, h),
+                    bound(4 * (fdl.numel() + h.numel() + O * Kp * ring_b),
+                          2 * Kp * R * O * ring_b))
+            if O == 12:
+                dual("mac_kmajor", shape, lambda: mk.mac_kmajor(fdl, h),
+                     lambda: mk.mac_kmajor(fdl, h, generic=True), args,
+                     label="grouped 3-bank")
+            else:
+                measure("mac_kmajor", f"grouped {h_count}-bank {shape}",
+                        lambda: mk.mac_kmajor(fdl, h), *args)
+            del fdl, h
+    paged_b = POOL_LANES[M] // GROUPS
+    R = SPEAKERS * 2 * M
+    for n, halves in ((3, (1, 2, 3)), (2, (1, 2))):
+        for h_count in halves:
+            O = M * h_count * EARS * 2
+            pages = [tensor((Kp, R, paged_b)) for _ in range(n)]
+            bank = tensor((n, Kp, O, R))
+            stacked = torch.stack(pages)
+            measure("mac_kmajor_pages", f"grouped {h_count}-bank {n} pages "
+                    f"K={Kp} R={R} O={O} B={paged_b}",
+                    lambda: mk.mac_kmajor_pages(pages, bank),
+                    lambda: mk.mac_kmajor_pages_ref(pages, bank),
+                    lambda: sum(mk.mac_kmajor_ref(p.double(), h.double())
+                                for p, h in zip(pages, bank)),
+                    lambda: torch.einsum("pkrb,pkor->okb", stacked, bank),
+                    bound(4 * (n * Kp * R * paged_b + bank.numel()
+                               + O * Kp * paged_b),
+                          2 * n * Kp * R * O * paged_b))
+            del pages, bank, stacked
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -490,26 +579,38 @@ def reference_blend(banks, weights, x, preamp, coeffs):
     """float64 reference of one lane through a time-varying bank: the
     per-sample blend sum_i weights[i] * (banks[i] * x) of full-history
     convolutions (scipy fftconvolve), then the EQ cascade (sosfilt)."""
-    from scipy.signal import fftconvolve, sosfilt
+    return cascade(blend_dry(banks, weights, x), preamp, coeffs)
+
+
+def blend_dry(banks, weights, x) -> np.ndarray:
+    """sum_i weights[i] * (banks[i] * x), per ear, in float64."""
+    from scipy.signal import fftconvolve
 
     n = x.shape[-1]
-    sos = np.array([[c.b0, c.b1, c.b2, 1.0, c.a1, c.a2] for c in coeffs])
     out = np.zeros((EARS, n))
     for e in range(EARS):
-        dry = sum(w * sum(fftconvolve(x[s].astype(np.float64),
-                                          h[s, e].astype(np.float64))[:n]
-                              for s in range(SPEAKERS))
-                  for h, w in zip(banks, weights) if w.any())
-        out[e] = sosfilt(sos, preamp * dry)
+        out[e] = sum(w * sum(fftconvolve(x[s].astype(np.float64),
+                                         h[s, e].astype(np.float64))[:n]
+                             for s in range(SPEAKERS))
+                     for h, w in zip(banks, weights) if w.any())
     return out
 
 
-def fade_weights(n_banks: int, n: int, events) -> np.ndarray:
-    """Per-sample weights [n_banks, n] of one lane's output: bank 0 until
-    the first event, then for each (start, from, to, fade), in order, a
-    ramp (t - start + 1) / fade from `from` to `to`, clipped at 1."""
+def cascade(dry: np.ndarray, preamp, coeffs) -> np.ndarray:
+    """The EQ cascade from rest (sosfilt of the design, preamp first)."""
+    from scipy.signal import sosfilt
+
+    sos = np.array([[c.b0, c.b1, c.b2, 1.0, c.a1, c.a2] for c in coeffs])
+    return sosfilt(sos, preamp * dry, axis=-1)
+
+
+def fade_weights(n_banks: int, n: int, events, first: int = 0) -> np.ndarray:
+    """Per-sample weights [n_banks, n] of one lane's output: bank `first`
+    until the first event, then for each (start, from, to, fade), in
+    order, a ramp (t - start + 1) / fade from `from` to `to`, clipped at
+    1."""
     w = np.zeros((n_banks, n))
-    w[0] = 1.0
+    w[first] = 1.0
     for start, frm, to, fade in events:
         r = np.minimum((np.arange(n - start) + 1.0) / fade, 1.0)
         w[:, start:] = 0.0
@@ -743,6 +844,40 @@ def pool_phase(label: str, wav, dev: torch.device, M: int,
     return pool, base, launches
 
 
+def saturated_round(pool: StreamPool, x: torch.Tensor, fade: bool = False):
+    """A function running one saturated device round of `pool` (the "_id"
+    step, every lane harvested, on the device-resident input x) on a fresh
+    carry of the pool's shape: each group's active bank and EQ target, or
+    with fade=True a hot-swap round of every group on its self-crossfade
+    with every lane blending (a grouped fade round's shape)."""
+    variant = "ring_id" if pool.blocks_per_step == 1 else "paged_id"
+    targets = [rt.active.params for rt in pool.eq_runtimes]
+    p = pool._pack(targets)
+    if fade:
+        banks = [pool._self_fade(g) for g in range(pool.groups)]
+        params = pool._pack(b[0] for b in banks)
+        operands = pool._pack(b[1] for b in banks)
+        ramp = torch.from_numpy(upols.xfade_ramp(
+            min(EQ_RAMP, pool.step_frames), pool.step_frames)).to(pool.device)
+        mask = torch.ones(pool.max_streams, dtype=torch.bool,
+                          device=pool.device)
+    else:
+        params = pool._conv_params
+        operands = pool._pack(pool._operands(q, g)
+                              for g, q in enumerate(targets))
+        ramp = mask = None
+    state = pool._fresh_state()
+    idx = torch.arange(pool.max_streams, device=pool.device)
+
+    def run():
+        nonlocal state
+        state, _ = pool_step_body(params, p, p, state, x, idx,
+                                  pool.eq_runtime.transition_length, True,
+                                  False, variant, operands, ramp, mask)
+
+    return run
+
+
 def pool_timing_phase(pool: StreamPool, base: np.ndarray, smi: str) -> None:
     """bench.py:measure_pool_host's pattern: every lane fed one step per
     round (push_many, pump(max_rounds=1), pull_many), POOL_TIMED_BLOCKS
@@ -778,22 +913,11 @@ def pool_timing_phase(pool: StreamPool, base: np.ndarray, smi: str) -> None:
     peak = torch.cuda.max_memory_allocated()
 
     variant = "ring_id" if M == 1 else "paged_id"
-    p = pool.eq_runtime.active.params
-    operands = pool._operands(p)
     with torch.inference_mode():
-        state = pool._fresh_state()
         x = torch.from_numpy(base).to(pool.device)
         if M > 1:
             x = x.view(len(lanes), SPEAKERS, M, BLOCK)
-        idx = torch.arange(len(lanes), device=pool.device)
-
-        def device_round():
-            nonlocal state
-            state, _ = pool_step_body(
-                pool._conv_params, p, p, state, x, idx,
-                pool.eq_runtime.transition_length, True, False, variant,
-                operands)
-
+        device_round = saturated_round(pool, x)
         device_ms = cuda_ms(device_round, 10)
         profiled_ms, kernels, ops = device_breakdown(device_round)
     round_ms = best / rounds * 1e3
@@ -868,7 +992,7 @@ def launches_now() -> dict:
     """Each kernel's launch count and its launches by output width O."""
     return {name: {"total": mk.launch_count(name),
                    **{f"O={o}": mk.launch_count(name, columns=o)
-                      for o in (4, 8, 32, 64)
+                      for o in (4, 8, 12, 32, 64, 96)
                       if mk.launch_count(name, columns=o)}}
             for name in KERNELS}
 
@@ -959,9 +1083,8 @@ class LaneRecorder:
     """Sampled lanes of a pool, round by round: their inputs and outputs,
     and their hot-swap fades on each lane's own output timeline as the pool
     runs them. A swap arms every attached lane; an armed lane fades in its
-    next rendered round, from the bank it was armed from (on a second swap
-    before that round, the newer old half: the JAX pool's semantics) to the
-    newest."""
+    next rendered round, from the bank it last played (also after a second
+    swap before that round) to the newest."""
 
     def __init__(self, lanes, step: int):
         self.lanes, self.step = lanes, step
@@ -971,10 +1094,9 @@ class LaneRecorder:
         self.armed = {b: None for b in lanes}
         self.events = {b: [] for b in lanes}
 
-    def swap(self, to: int, fade: int) -> None:
-        for b in self.lanes:
-            frm = self.armed[b][1] if self.armed[b] else self.current[b]
-            self.armed[b] = (frm, to, fade)
+    def swap(self, to: int, fade: int, lanes=None) -> None:
+        for b in self.lanes if lanes is None else lanes:
+            self.armed[b] = (self.current[b], to, fade)
 
     def record(self, fed: np.ndarray, chunks: np.ndarray, y: np.ndarray):
         for b in self.lanes:
@@ -1042,7 +1164,7 @@ def pool_hotswap_phase(label: str, wavs, dev: torch.device, M: int,
             if not pool.set_renderer(renderers[item]):
                 raise AssertionError(f"{label}: swap to bank {item} reset")
             rec.swap(item, fade)
-            carry.append([pool._bank_partitions,
+            carry.append([pool._bank_partitions[0],
                           renderers[item].partition_count, pool._lane_cycle])
             continue
         fed = every if item == "f" else np.nonzero(
@@ -1075,8 +1197,7 @@ def pool_hotswap_phase(label: str, wavs, dev: torch.device, M: int,
         shape = (lanes, SPEAKERS, M, BLOCK) if M > 1 else (lanes, SPEAKERS, BLOCK)
         x = torch.empty(shape, device=dev).normal_(0.0, 0.25)
         idx = torch.arange(lanes, device=dev)
-        dual = upols.xfade_conv_params(pool._conv_params, pool._conv_params)
-        dual_ops = ChainOperands(pool._mac_bank(dual), pool._synth, None)
+        dual, dual_ops = pool._self_fade(0)
         mask = torch.ones(lanes, dtype=torch.bool, device=dev)
 
         def device_round(params, operands, ramp=None, lane_mask=None):
@@ -1113,6 +1234,354 @@ def pool_hotswap_phase(label: str, wavs, dev: torch.device, M: int,
         raise AssertionError(f"{label}: the last bank was not shorter than the "
                              f"carry: {carry}")
     return launches
+
+
+class GroupedRecorder(LaneRecorder):
+    """LaneRecorder for a grouped pool: each sampled lane starts on its
+    group's bank, a swap arms only the swapped group's lanes, and a
+    retarget of a group's EQ starts, at each of its lanes' next rendered
+    sample, the crossfade from the old cascade (its history kept) to the
+    new one (from rest) over EQ_RAMP samples."""
+
+    def __init__(self, lanes, step: int, group_of, banks: dict, eqs: dict):
+        super().__init__(lanes, step)
+        self.group = {b: group_of(b) for b in lanes}
+        self.current = {b: banks[self.group[b]] for b in lanes}
+        self.first = dict(self.current)
+        self.eq = {b: [eqs[self.group[b]]] for b in lanes}
+        self.eq_start = {b: None for b in lanes}
+        self._eq_armed = {b: None for b in lanes}
+
+    def swap_group(self, group: int, to: int, fade: int) -> None:
+        self.swap(to, fade, [b for b in self.lanes if self.group[b] == group])
+
+    def retarget(self, group: int, eq) -> None:
+        for b in self.lanes:
+            if self.group[b] == group:
+                self._eq_armed[b] = eq
+
+    def record(self, fed, chunks, y):
+        for b in self.lanes:
+            pos = int(np.searchsorted(fed, b))
+            if self._eq_armed[b] is not None and pos < len(fed) and fed[pos] == b:
+                self.eq[b].append(self._eq_armed[b])
+                self.eq_start[b] = len(self.inputs[b]) * self.step
+                self._eq_armed[b] = None
+        super().record(fed, chunks, y)
+
+    def errors(self, banks) -> list:
+        err = []
+        for b in self.lanes:
+            x = np.concatenate(self.inputs[b], -1)
+            n = x.shape[-1]
+            dry = blend_dry(banks, fade_weights(len(banks), n,
+                                                self.events[b],
+                                                self.first[b]), x)
+            want = cascade(dry, *self.eq[b][0])
+            if self.eq_start[b] is not None:
+                t0 = self.eq_start[b]
+                r = np.zeros(n)
+                r[t0:] = np.minimum((np.arange(n - t0) + 1.0) / EQ_RAMP, 1.0)
+                new = np.zeros_like(want)
+                new[:, t0:] = cascade(dry[:, t0:], *self.eq[b][1])
+                want = (1.0 - r) * want + r * new
+            err.append(rel_rms(np.concatenate(self.outputs[b], -1), want))
+        return err
+
+
+def grouped_pool(renderers, lanes: int, M: int, dev: torch.device,
+                 active=GROUPED_BANKS) -> StreamPool:
+    """A grouped pool of GROUPS profiles, group g on renderers[active[g]]
+    with the EQ at scale GROUPED_EQ_SCALES[g]."""
+    return StreamPool(lanes, SAMPLE_RATE, block_size=BLOCK, blocks_per_step=M,
+                      device=dev, profiles=[
+                          PoolProfile(renderers[bank], bench_eq_definition(
+                              GROUPED_EQ_SCALES[g]))
+                          for g, bank in enumerate(active)])
+
+
+def pool_grouped_phase(label: str, wavs, dev: torch.device, M: int,
+                       rng: np.random.Generator, smi: str) -> dict:
+    """A grouped pool at full width (GROUPS profile groups of different
+    banks, partition counts and EQs) through GROUPED_SCHEDULE[M]: ragged
+    rounds, swaps of groups 0 and 2 landing in one round, a second swap of
+    group 0 while its paused lane still owes the first fade (the three-half
+    fade bank), a retarget of group 1's EQ, saturated rounds. 2 sampled
+    lanes per group against the float64 time-varying reference (its own
+    banks and EQs); every round GROUPS MAC launches, one per group. Then a
+    snapshot restored into a fresh pool (bit for bit the uninterrupted
+    pool's audio), on the ring tier a resize into RESIZE_LANES lanes, and
+    the saturated grouped device round in CUDA-event time in turns with the
+    ungrouped pool's at the same lane count (steady and fade rounds), with
+    the full round's host share and the peak memory."""
+    lanes = POOL_LANES[M]
+    schedule, paused_rounds = GROUPED_SCHEDULE[M]
+    banks = [build_hrir_time_domain(w, channel_maps.STEREO, SAMPLE_RATE)
+             for w in wavs]
+    eqs = [bench_eq_definition(k) for k in GROUPED_EQ_SCALES]
+    designs = [bd.design_cascade(d, SAMPLE_RATE) for d in eqs]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    renderers = [prepare_renderer(w, channel_maps.STEREO, SAMPLE_RATE, BLOCK,
+                                  lookahead=M, device=dev) for w in wavs]
+    pool = grouped_pool(renderers, lanes, M, dev)
+    q = pool.group_size
+    every = np.array([pool.attach(g) for g in range(GROUPS)
+                      for _ in range(q)])
+    pool.prewarm(include_hotswap=True)
+    settle(pool)
+    setup = time.perf_counter() - t0
+    step = pool.step_frames
+    fade = min(pool.config.transition_length(SAMPLE_RATE), step)
+    sampled = sorted(int(g * q + b) for g in range(GROUPS)
+                     for b in rng.choice(q, 2, replace=False))
+    paused = sampled[0]
+    rec = GroupedRecorder(sampled, step, pool.group_of,
+                          {g: GROUPED_BANKS[g] for g in range(GROUPS)},
+                          {g: designs[g] for g in range(GROUPS)})
+    name = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+    steady_o = (1 if M == 1 else M) * EARS * 2
+    rounds = []
+    mk.reset_launch_count()
+    t0 = time.perf_counter()
+    for item in schedule:
+        if isinstance(item, dict):
+            for g, bank in item.items():
+                if not pool.set_renderer(renderers[bank], group=g):
+                    raise AssertionError(f"{label}: swap of group {g} reset")
+                rec.swap_group(g, bank, fade)
+            continue
+        if item == "e":
+            pool.set_equalizer(eqs[-1], group=1)
+            rec.retarget(1, designs[-1])
+            continue
+        fed = every if item == "f" else np.nonzero(
+            rng.random(lanes) < POOL_SHARE)[0]
+        if len(rounds) in paused_rounds:
+            fed = fed[fed != paused]
+        chunks = rng.standard_normal((len(fed), SPEAKERS, step),
+                                     dtype=np.float32) * 0.25
+        fades, before = pool.fade_rounds, launches_now()[name]
+        rec.record(fed, chunks, feed_round(pool, fed, chunks))
+        after = launches_now()[name]
+        kind = "fade" if pool.fade_rounds > fades else "steady"
+        by_o = {k: after[k] - before.get(k, 0) for k in after
+                if k != "total" and after[k] != before.get(k, 0)}
+        rounds.append([kind, by_o])
+        if after["total"] - before["total"] != GROUPS or (
+                (kind == "steady") != (set(by_o) == {f"O={steady_o}"})):
+            raise AssertionError(f"{label}: round {len(rounds) - 1} ({kind}) "
+                                 f"launched {by_o}, expected {GROUPS} {name} "
+                                 f"launches")
+    seconds = time.perf_counter() - t0
+    launches = launches_now()
+    stats = pool.stats()
+    lane_err = rec.errors(banks)
+    three_half = f"O={3 * steady_o}"
+    result = dict(
+        lanes=lanes, groups=GROUPS, blocks_per_step=M, setup_seconds=setup,
+        seconds=seconds, partitions=pool._bank_partitions,
+        rounds=len(rounds), round_launches=rounds, launches=launches,
+        fade_rounds=stats["fade_rounds"], debt_rolls=stats["debt_rolls"],
+        attached_per_group=stats["attached_per_group"],
+        lanes_sampled=sampled, paused_lane=paused,
+        lane_fades=[rec.events[b] for b in sampled],
+        eq_switch_at=[rec.eq_start[b] for b in sampled],
+        lane_rel_rms=lane_err)
+    if not max(lane_err) <= CHAIN_TOL:
+        raise AssertionError(f"{label}: lane rel-RMS {lane_err} > {CHAIN_TOL}")
+    if not any(three_half in r[1] for r in rounds):
+        raise AssertionError(f"{label}: no round ran the three-half fade bank")
+    if rounds[-1][0] != "steady" or pool._xfade_params is not None:
+        raise AssertionError(f"{label}: the fades did not end")
+    if len(rec.events[paused]) != 1 or rec.events[paused][0][1:3] != (0, 4):
+        raise AssertionError(f"{label}: the paused lane did not fade from its "
+                             f"own bank: {rec.events[paused]}")
+    if len(set(pool._bank_partitions)) < 2:
+        raise AssertionError(f"{label}: the groups share one partition count")
+
+    # Checkpoint: a snapshot mid-traffic restored into a fresh pool.
+    def ragged(among):
+        fed = among[rng.random(len(among)) < POOL_SHARE]
+        return fed, rng.standard_normal((len(fed), SPEAKERS, step),
+                                        dtype=np.float32) * 0.25
+
+    # The pool's banks now, which a restored pool must be built with.
+    now = [next(i for i, r in enumerate(renderers) if r is active)
+           for active in pool.renderers]
+    snap = pool.snapshot()
+    twin = grouped_pool(renderers, lanes, M, dev, now)
+    twin.restore(snap)
+    del snap
+    equal, differ = True, 0.0
+    for _ in range(GROUPED_CHECK_ROUNDS):
+        fed, chunks = ragged(every)
+        ya, yb = feed_round(pool, fed, chunks), feed_round(twin, fed, chunks)
+        equal &= bool(np.array_equal(ya, yb))
+        differ = max(differ, float(np.abs(ya - yb).max()))
+    del twin
+    torch.cuda.empty_cache()
+    result.update(restored_equal=equal, restored_max_abs_diff=differ)
+    if not equal:
+        raise AssertionError(f"{label}: the restored pool's audio differs by "
+                             f"up to {differ}")
+    if M == 1:
+        kept = every[1::2]
+        for s in every[::2]:
+            pool.detach(int(s))
+        snap = pool.snapshot()
+        small = grouped_pool(renderers, RESIZE_LANES, M, dev, now)
+        lane_map = small.restore(snap, resize=True)
+        del snap
+        mapped = np.array([lane_map[int(s)] for s in kept])
+        ya_all, yc_all = [], []
+        for _ in range(GROUPED_CHECK_ROUNDS):
+            fed, chunks = ragged(kept)
+            ya_all.append(feed_round(pool, fed, chunks))
+            yc_all.append(feed_round(small, mapped[np.searchsorted(kept, fed)],
+                                     chunks))
+        ya_all, yc_all = (np.concatenate(y, 0) for y in (ya_all, yc_all))
+        per_group = RESIZE_LANES // GROUPS
+        want_map = np.concatenate([g * per_group + np.arange(q // 2)
+                                   for g in range(GROUPS)])
+        result.update(resized_lanes=RESIZE_LANES,
+                      resized_per_group=bool(np.array_equal(mapped, want_map)),
+                      resized_equal=bool(np.array_equal(ya_all, yc_all)),
+                      resized_rel_rms=rel_rms(yc_all, ya_all))
+        del small
+        torch.cuda.empty_cache()
+        if not (result["resized_per_group"]
+                and result["resized_rel_rms"] <= KERNEL_TOL):
+            raise AssertionError(f"{label}: resize {result}")
+
+    # Timing: the saturated device round, grouped and ungrouped in turns.
+    with torch.inference_mode():
+        x = torch.empty((lanes, SPEAKERS) + ((M,) if M > 1 else ())
+                        + (BLOCK,), device=dev).normal_(0.0, 0.25)
+        flat = make_pool(wavs[0], lanes, M, dev, eqs[0])
+        rounds_ms = {}
+        for kind in ("steady", "fade"):
+            fade_kind = kind == "fade"
+            fns = (saturated_round(flat, x, fade_kind),
+                   saturated_round(pool, x, fade_kind))
+            mk.reset_launch_count()
+            fns[1]()
+            per_round = mk.launch_count(name)
+            turns = [cuda_ms(fns[i], 10) for i in (0, 1, 1, 0)]
+            rounds_ms[kind] = dict(ungrouped_ms=(turns[0] + turns[3]) / 2,
+                                   grouped_ms=(turns[1] + turns[2]) / 2,
+                                   turns=turns,
+                                   grouped_mac_launches=per_round)
+            del fns
+        _, kernels, _ = device_breakdown(saturated_round(pool, x), top=6)
+        del flat
+    torch.cuda.empty_cache()
+    base = rng.standard_normal((lanes, SPEAKERS, step), dtype=np.float32) * 0.25
+    for s in every:
+        if s not in pool._attached:
+            pool.attach(pool.group_of(s))
+
+    def one_round():
+        pool.push_many(every, base)
+        pool.pump(max_rounds=1)
+        pool.pull_many(every, step)
+
+    for _ in range(2):
+        one_round()
+    timed = POOL_TIMED_BLOCKS // M
+    best = float("inf")
+    for _ in range(3):
+        t1 = time.perf_counter()
+        for _ in range(timed):
+            one_round()
+        best = min(best, time.perf_counter() - t1)
+    round_ms = best / timed * 1e3
+    result.update(
+        card=smi, device_round=rounds_ms, device_round_top_kernels=kernels,
+        ms_per_round=round_ms,
+        host_share=1.0 - rounds_ms["steady"]["grouped_ms"] / round_ms,
+        x_realtime=lanes * timed * step / SAMPLE_RATE / best,
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    phase(label, **result)
+    if rounds_ms["steady"]["grouped_mac_launches"] != GROUPS:
+        raise AssertionError(f"{label}: {rounds_ms}")
+    del pool
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_grouped_phase(files: ServeFiles, wav_b, rng: np.random.Generator,
+                        smi: str) -> None:
+    """`python -m airwave_tpu_torch serve --profile A.wav:eq1.txt --profile
+    B.wav:eq2.txt` as a process: after a warm-up client has carried the
+    pool through its EQs' activation ramp, checking clients in each group
+    (two per group, at once) against float64 through their group's bank
+    and EQ; SIGINT writes the grouped checkpoint and a restart restores it
+    (profile_groups 2)."""
+    t_phase = time.perf_counter()
+    hrir_b = os.path.join(files.dir, "hrir14-b.wav")
+    wavio.save(hrir_b, wav_b.audio, SAMPLE_RATE)
+    eq_b = os.path.join(files.dir, "eq-b.txt")
+    with open(eq_b, "w") as f:
+        f.write("Preamp: -1 dB\nFilter 1: ON PK Fc 700 Hz Gain 3 dB Q 1.0\n")
+    ckpt = os.path.join(files.dir, "grouped.ckpt")
+    serve = ["--profile", f"{files.hrir}:{files.eq}",
+             "--profile", f"{hrir_b}:{eq_b}", "--max-streams", "16",
+             "--port", "0", "--checkpoint", ckpt, "--checkpoint-interval", "0"]
+    refs = {0: (files.hrir_td, files.preamp, files.coeffs),
+            1: (build_hrir_time_domain(wavio.load(hrir_b), channel_maps.STEREO,
+                                       SAMPLE_RATE),
+                *bd.design_cascade(shell_app._load_equalizer(eq_b),
+                                   SAMPLE_RATE))}
+    xs = [rng.standard_normal((SPEAKERS, SERVE_GROUPED_FRAMES),
+                              dtype=np.float32) * 0.25 for _ in range(4)]
+    groups = [0, 1, 0, 1]
+    ys = [None] * 4
+    first = ServeProcess(serve, os.path.join(files.dir, "grouped1.err"))
+    try:
+        ready = first.ready()
+        address = tuple(ready["listening"])
+        render_via_server(address, np.zeros((SPEAKERS, 4 * BLOCK), np.float32),
+                          chunk=BLOCK)  # the EQs' activation ramp ends
+
+        def check(i):
+            ys[i] = render_via_server(address, xs[i], chunk=BLOCK,
+                                      group=groups[i])
+
+        threads = [threading.Thread(target=check, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        first_rc = first.interrupt()
+    finally:
+        first.close()
+    saved = {"checkpoint_saved": ckpt} in first.lines
+    errs = [rel_rms(y, reference_lane(*refs[g][:1], x, *refs[g][1:]))
+            if y is not None and y.shape == x.shape else float("inf")
+            for x, y, g in zip(xs, ys, groups)]
+    second = ServeProcess(serve, os.path.join(files.dir, "grouped2.err"))
+    try:
+        restart = second.ready()
+        second_rc = second.interrupt()
+    finally:
+        second.close()
+    phase("serve_grouped", card=smi, serve_listening=ready,
+          groups=groups, check_frames=SERVE_GROUPED_FRAMES,
+          check_rel_rms=errs, serve_exit=first_rc, checkpoint_saved=saved,
+          checkpoint_bytes=os.path.getsize(checkpoint_path(ckpt)),
+          restart_listening=restart, restart_exit=second_rc,
+          seconds=time.perf_counter() - t_phase)
+    if ready["profile_groups"] != 2 or ready["device"] != "cuda:0":
+        raise AssertionError(f"serve_grouped: serve started as {ready}")
+    if not max(errs) <= CHAIN_TOL:
+        raise AssertionError(f"serve_grouped: rel-RMS {errs} > {CHAIN_TOL}")
+    if first_rc or second_rc or not saved:
+        raise AssertionError(f"serve_grouped: exits {first_rc}, {second_rc}; "
+                             f"checkpoint saved: {saved}")
+    if (restart["restored_checkpoint"] is not True
+            or restart["profile_groups"] != 2):
+        raise AssertionError(f"serve_grouped: the restart: {restart}")
 
 
 def checkpoint_phase(wav, dev: torch.device, rng: np.random.Generator,
@@ -1774,6 +2243,13 @@ def main() -> None:
     }
     checkpoints = checkpoint_phase(wav, dev, rng, smi)
     with tempfile.TemporaryDirectory() as tmp:
+        short2 = hrir_wav(args.seed + 4, tmp, SHORT_TAPS)
+    grouped_wavs = [wav, swap[0], short, short2, swap[1]]
+    for label, M in (("pool_grouped", 1),
+                     ("pool_grouped_paged", BLOCKS_PER_STEP)):
+        launches[label] = pool_grouped_phase(label, grouped_wavs, dev, M, rng,
+                                             smi)
+    with tempfile.TemporaryDirectory() as tmp:
         files = ServeFiles(tmp, wav, args.seed)
         ring_server, launches["serve_ring"] = serve_phase(
             "serve_ring", files, 1, args.seed, rng, smi)
@@ -1782,6 +2258,7 @@ def main() -> None:
         _, launches["serve_paged"] = serve_phase(
             "serve_paged", files, BLOCKS_PER_STEP, args.seed + 1, rng, smi)
         cli_phase(files, rng, smi)
+        serve_grouped_phase(files, swap[0], rng, smi)
         launches.update(render_phase(files, rng, smi))
     phase("done", seconds=time.perf_counter() - t_start)
 
@@ -1793,7 +2270,10 @@ def main() -> None:
                  "serve_ring", "serve_paged", "render_graph",
                  "render_throughput")},
              **{path: {name: counts[name]["total"] for name in KERNELS}
-                for path, counts in {**hotswap, **checkpoints}.items()}}
+                for path, counts in {
+                    **hotswap, **checkpoints,
+                    **{k: launches[k] for k in ("pool_grouped",
+                                                "pool_grouped_paged")}}.items()}}
     # Each kernel's headline case: the single block at B=16384 (bake M=1)
     # and the fused 3 pages (bake M=8 and the paged pool).
     entries = []

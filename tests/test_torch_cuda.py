@@ -17,7 +17,7 @@ from airwave_tpu_torch.models.bake import bake
 from airwave_tpu_torch.models.binaural import BinauralEngine
 from airwave_tpu_torch.ops import biquad_design as bd
 from airwave_tpu_torch.ops import upols
-from airwave_tpu_torch.runtime.stream_pool import StreamPool
+from airwave_tpu_torch.runtime.stream_pool import PoolProfile, StreamPool
 
 pytestmark = pytest.mark.cuda
 
@@ -340,3 +340,115 @@ def test_pool_fade_round_on_card_matches_cpu(cuda_device, M):
     assert pools[0][0].stats()["fade_rounds"] == 3
     for a, b in zip(*outs):
         assert rel_rms(np.concatenate(a, -1), np.concatenate(b, -1)) <= 1e-5
+
+
+@pytest.mark.parametrize("M", [1, 8])
+def test_grouped_pool_on_card_matches_cpu(cuda_device, M):
+    """A grouped pool (3 groups, banks of 300, 700 and 300 frames, so
+    group 1 carries its own partition count) on the card against the same
+    pool on the CPU, through ragged rounds, a set_equalizer(group=1)
+    retarget, swaps of groups 0 and 2 landing in one round and a second
+    swap of group 0 while its paused lane still owes the first fade (the
+    three-half fade bank). Every round on the card launches the tier's MAC
+    once per group: mac_kmajor at O = 4, mac_kmajor_pages at O = 4M; in a
+    fade round every group runs a fade bank (the groups not swapping their
+    self-crossfade) at twice that, the three-half bank at three times."""
+    T, G, lanes = 64, 3, 6
+    rng = np.random.default_rng(10 + M)
+    pools = []
+    for dev in (cuda_device, torch.device("cpu")):
+        rs = [prepare_renderer(_wav(s, f), channel_maps.STEREO, 48_000.0, T,
+                               lookahead=M, device=dev)
+              for s, f in ((6, 300), (7, 700), (8, 300), (9, 300), (10, 300))]
+        pool = StreamPool(lanes, 48_000.0, block_size=T, blocks_per_step=M,
+                          device=dev, profiles=[
+                              PoolProfile(rs[0], _preset(1.0)),
+                              PoolProfile(rs[1], None),
+                              PoolProfile(rs[2], _preset(-2.0))])
+        for g in range(G):
+            pool.attach(g)
+            pool.attach(g)
+        pools.append((pool, rs))
+    step = pools[0][0].step_frames
+    outs = [[[] for _ in range(lanes)] for _ in pools]
+    name = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+    cols = []
+    for rnd in range(12):
+        fed = rng.random(lanes) < 0.8
+        fed[0] = True              # lane 0 (group 0) fades at each swap
+        fed[1] = not 4 <= rnd < 8  # lane 1 (group 0) pauses across both
+        fed = np.nonzero(fed)[0]
+        chunks = (rng.standard_normal((len(fed), 2, step)) * 0.3).astype(
+            np.float32)
+        for (pool, rs), out in zip(pools, outs):
+            if rnd == 2:
+                pool.set_equalizer(_preset(3.0), group=1)
+            if rnd == 4:
+                assert pool.set_renderer(rs[3], group=0) is True
+                assert pool.set_renderer(rs[4], group=2) is True
+            if rnd == 6:
+                assert pool.set_renderer(rs[0], group=0) is True
+                assert pool._fades[0].params.num_ears == 6
+            mk.reset_launch_count()
+            pool.push_many(fed, chunks)
+            assert pool.pump() == 1
+            if pool.device.type == "cuda":
+                assert mk.launch_count(name) == G, rnd
+                cols.append(sorted(k[1] for k, n in
+                                   mk._launches_by_columns.items()
+                                   for _ in range(n)))
+            for j, y in zip(fed, pool.pull_many(fed, step)):
+                out[j].append(y)
+    assert [4 * M] * 3 in cols and [8 * M] * 3 in cols
+    assert [8 * M, 8 * M, 12 * M] in cols
+    for a, b in zip(*outs):
+        assert rel_rms(np.concatenate(a, -1), np.concatenate(b, -1)) <= 1e-5
+
+
+@pytest.mark.parametrize("M", [1, 8])
+def test_three_half_fade_bank_on_card_matches_plain(cuda_device, M):
+    """The three-half fade bank [original | intermediate | newest] of a
+    4320-tap bank: its MAC operand (O = 12 through mac_kmajor's O = 12
+    instance, equal to the generic kernel bit for bit; O = 96 through
+    mac_kmajor_pages) against the plain version and
+    float64 at the pool's 2048 lanes per group, and the ring MAC split into
+    column runs when h[k] outgrows shared memory, against one plain
+    contraction."""
+    T, B = 512, 2048
+    rng = np.random.default_rng(M)
+    banks = [upols.make_conv_params(
+        (rng.standard_normal((2, 2, 4320)) * 0.05).astype(np.float32), T,
+        lookahead=M, device=cuda_device) for _ in range(3)]
+    fade = upols.xfade_conv_params(banks[:2], banks[2])
+    Kp = upols.padded_bin_count(T)
+    P = fade.partition_count
+    mk.reset_launch_count()
+    if M == 1:
+        h = upols._rotated_operand(upols.single_block_bank(fade, Kp), 3)
+        fdl = torch.randn((Kp, h.shape[2], B), device=cuda_device)
+        got = mk.mac_kmajor(fdl, h)
+        plain = mk.mac_kmajor_ref(fdl, h)
+        ref = mk.mac_kmajor_ref(fdl.double(), h.double())
+        assert mk.launch_count("mac_kmajor", columns=12) == 1
+        # O = 12 runs its own instance, bit for bit the generic kernel.
+        assert torch.equal(got, mk.mac_kmajor(fdl, h, generic=True))
+    else:
+        bank = upols.paged_bank(fade, M, Kp)
+        pages = [torch.randn((Kp, bank.shape[3], B), device=cuda_device)
+                 for _ in range(P // M)]
+        got = mk.mac_kmajor_pages(pages, bank)
+        plain = mk.mac_kmajor_pages_ref(pages, bank)
+        ref = mk.mac_kmajor_pages_ref([p.double() for p in pages],
+                                      bank.double())
+        assert mk.launch_count("mac_kmajor_pages", columns=96) == 1
+    torch.cuda.synchronize()
+    assert rel_rms(got.cpu().numpy(), plain.cpu().numpy()) <= 1e-6
+    assert rel_rms(got.cpu().numpy(), ref.cpu().numpy()) <= 1e-6
+    R = 600  # h[k] of 28 columns outgrows shared memory: two runs
+    h = torch.randn((Kp, mk.max_columns(R) + 8, R), device=cuda_device)
+    fdl = torch.randn((Kp, R, 128), device=cuda_device)
+    mk.reset_launch_count()
+    split = upols._mac_columns(fdl, h)
+    assert mk.launch_count("mac_kmajor") == 2
+    assert rel_rms(split.cpu().numpy(),
+                   mk.mac_kmajor_ref(fdl, h).cpu().numpy()) <= 1e-6

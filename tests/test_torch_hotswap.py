@@ -445,14 +445,14 @@ def test_paused_lane_rejoins_after_shorter_bank_swap(M):
 
 
 def test_pool_second_swap_mid_fade_matches_jax():
-    """A second swap while a paused lane still owes the first fade. The pool
-    copies the JAX pool here (stream_pool.py:880), which departs from the
-    ideal trajectory the engine keeps: the pending lane re-arms toward the
-    newest bank from the NEWER old half, so at its rejoin it blends
-    bank 1 -> bank 2 although it last played bank 0. The jump from bank 0
-    to bank 1 at that round boundary is the divergence (ROADMAP Queue 3).
-    Held against the JAX pool, and the lanes that faded in time against
-    the oracle."""
+    """A second swap while a paused lane still owes the first fade. The
+    lane that faded in time (a) blends bank 1 -> bank 2, as both pools
+    render it. The paused lane (b) last played bank 0, so at its rejoin
+    the port blends it bank 0 -> bank 2 from the three-half fade bank
+    [0 | 1 | 2], the ideal trajectory within 1e-5. The JAX pool
+    (stream_pool.py:880) blends it from the intermediate bank 1 instead:
+    its jump from bank 0 to bank 1 at that round boundary is held here as
+    a gap of at least 0.1 rel-RMS from the ideal (0.341 on these inputs)."""
     rng = np.random.default_rng(23)
     r0, r1, r2 = (pool_renderers(s) for s in (51, 52, 53))
     pair = PoolPair(2, r0)
@@ -467,6 +467,7 @@ def test_pool_second_swap_mid_fade_matches_jax():
         if it == 4:
             assert pair.set_renderer(r2) is True
             assert pair.t.stats()["hotswap_fading"] == 2
+            assert pair.t._xfade_params.num_ears == 6  # [0 | 1 | 2]
         pair.push(a, sigs[0][:, it * BLOCK:(it + 1) * BLOCK])
         if not 2 <= it < 5:
             pair.push(b, sigs[1][:, fed_b * BLOCK:(fed_b + 1) * BLOCK])
@@ -477,7 +478,10 @@ def test_pool_second_swap_mid_fade_matches_jax():
     y12 = lane_ref(sigs[0], r1[2], r2[2], 4 * BLOCK, BLOCK)
     ideal = np.concatenate([y01[:, :4 * BLOCK], y12[:, 4 * BLOCK:]], 1)
     assert rel_rms(ya, ideal) <= TOL
-    pair.pull(b, fed_b * BLOCK)  # held against the JAX pool
+    ideal_b = lane_ref(sigs[1][:, :fed_b * BLOCK], r0[2], r2[2], 2 * BLOCK,
+                       BLOCK)
+    assert rel_rms(pair.t.pull(b, fed_b * BLOCK), ideal_b) <= TOL
+    assert rel_rms(pair.j.pull(b, fed_b * BLOCK), ideal_b) >= 0.1
     assert pair.t._xfade_params is None
 
 

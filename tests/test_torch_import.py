@@ -98,6 +98,71 @@ def test_cli_help_runs_with_jax_blocked():
     assert "help ok" in proc.stdout
 
 
+def test_grouped_pool_and_serve_profile_run_with_jax_blocked(tmp_path):
+    """The grouped names (PoolProfile, StreamPool(profiles=...),
+    set_renderer and set_equalizer of a group, a grouped snapshot through
+    the checkpoint file) and `serve --profile` (its --help, and
+    build_serve_pool of two --profile specs) run without jax."""
+    code = BLOCK_JAX + textwrap.dedent(f"""
+        import contextlib, io, runpy, argparse
+        import numpy as np
+        from airwave_tpu_torch.assets import channel_maps as cm
+        from airwave_tpu_torch.graph.renderer import prepare_renderer
+        from airwave_tpu_torch.io import apo, wav
+        from airwave_tpu_torch.runtime.stream_pool import (PoolProfile,
+                                                           StreamPool)
+        from airwave_tpu_torch.shell.app import build_serve_pool
+        from airwave_tpu_torch.utils import checkpoint
+
+        rng = np.random.default_rng(0)
+        banks = [(rng.standard_normal((14, n)) * 0.2).astype(np.float32)
+                 for n in (300, 700)]
+        rends = [prepare_renderer(wav.WAVData(48_000.0, a), cm.STEREO,
+                                  48_000.0, 64, device="cpu") for a in banks]
+        eq = apo.parse(b"Preamp: -2 dB\\n", "e.txt")
+        pool = StreamPool(4, 48_000.0, block_size=64, device="cpu",
+                          profiles=[PoolProfile(rends[0], eq),
+                                    PoolProfile(rends[1])])
+        lanes = [pool.attach(0), pool.attach(1)]
+        for it in range(3):
+            if it == 1:
+                assert pool.set_renderer(rends[0], group=1) is True
+                pool.set_equalizer(None, group=0)
+            pool.push_many(lanes, np.ones((2, 2, 64), np.float32))
+            assert pool.pump() == 1
+        y = pool.pull_many(lanes, 192)
+        assert y.shape == (2, 2, 192) and np.isfinite(y).all()
+        path = r"{tmp_path}/grouped"
+        checkpoint.save_pool_snapshot(path, pool.snapshot())
+        pool.restore(checkpoint.load_pool_snapshot(path, pool))
+        assert pool.stats()["attached_per_group"] == [1, 1]
+
+        sys.argv = ["airwave_tpu_torch", "serve", "--help"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            try:
+                runpy.run_module("airwave_tpu_torch", run_name="__main__")
+            except SystemExit as stop:
+                assert stop.code == 0
+        assert "--profile" in out.getvalue() and "repeatable" in out.getvalue()
+        paths = []
+        for i, a in enumerate(banks):
+            paths.append(r"{tmp_path}/bank%d.wav" % i)
+            wav.save(paths[-1], a, 48_000.0)
+        args = argparse.Namespace(hrir=None, eq=None, profile=paths,
+                                  layout="stereo", sample_rate=48_000.0,
+                                  max_streams=4, blocks_per_step=1,
+                                  mesh_devices=0, cpu=True, device="cpu")
+        grouped, _ = build_serve_pool(args)
+        assert grouped.groups == 2
+        assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+        print("grouped ok")
+    """)
+    proc = _run(code, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "grouped ok" in proc.stdout
+
+
 def test_jax_block_is_effective():
     """The blocker really blocks: the JAX package's ops cannot be imported
     under it (the trap that made the port carry its own biquad_design)."""
@@ -190,7 +255,9 @@ def test_entry_points_default_to_the_card():
     for call in (resolve_device,
                  lambda: bake(hrir, x, 48_000.0, block_size=64),
                  lambda: prepare_renderer(wav, layout, 48_000.0, 64),
-                 lambda: StreamPool(2, 48_000.0, renderer, block_size=64)):
+                 lambda: StreamPool(2, 48_000.0, renderer, block_size=64),
+                 lambda: StreamPool(2, 48_000.0, block_size=64,
+                                    profiles=[(renderer, None)] * 2)):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
 

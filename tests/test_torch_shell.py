@@ -175,10 +175,13 @@ def test_status_cpu_prints_json_and_the_card_is_the_default(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--profile", "{hrir}"], "item 14"),
+    (["--profile", "{hrir}"], "not both"),
     (["--mesh-devices", "2"], "item 17"),
 ], ids=["profile", "mesh-devices"])
 def test_unported_serve_flags_exit_cleanly(tmp_path, flags, item):
+    """--mesh-devices exits naming its ROADMAP item; --profile is ported
+    (tests/test_torch_grouped.py) and exits beside --hrir, as the JAX
+    CLI does."""
     hrir = hrir_file(tmp_path)
     with pytest.raises(SystemExit, match=item):
         main(["serve", "--cpu", "--hrir", hrir,
