@@ -1,1 +1,2 @@
-"""The serving shell: render server, wire client, load generator, CLI."""
+"""The serving shell: render server, wire client, load generator, CLI, and
+the status presentation and launch policies."""

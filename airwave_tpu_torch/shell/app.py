@@ -4,6 +4,9 @@ Port of airwave_tpu/shell/app.py with the same subcommands, flags and JSON
 output, on the card by default:
 
   render   offline bake: input WAV(s) -> HRIR (+EQ) -> stereo WAV(s)
+  presets  seed / list / import the managed preset libraries
+  demo     run the FULL runtime (controller + verification + recovery) on a
+           synthetic transport and report the status trail
   serve    TCP streaming render server (one profile, or grouped with
            repeated --profile HRIR.wav[:EQ.txt])
   client   stream a WAV through a running server (deployment smoke check)
@@ -12,9 +15,9 @@ output, on the card by default:
 `python -m airwave_tpu_torch <command> ...` (or the `airwave-tpu-torch`
 console script). `--device` names the torch device (default cuda:0) and
 `--cpu` means `--device cpu`; nothing falls back to the CPU when the card
-is missing. `presets` and `demo` are not ported yet (ROADMAP Queue 1),
-nor are multi-GPU pools (`serve --mesh-devices`, item 17): that flag exits
-with a message naming the item.
+is missing (`presets` takes them too, for the HRIR library's renderers).
+Multi-GPU pools (`serve --mesh-devices`, ROADMAP Queue 1 item 17) are not
+ported yet: that flag exits with a message naming the item.
 
 One deliberate difference from the JAX CLI: restore_serve_checkpoint moves
 aside ANY unreadable checkpoint (truncated, empty leaves, bad header) and
@@ -175,6 +178,154 @@ def cmd_render(args) -> int:
         "equalizer": eq_active,
         "device": device,
         "profile": profile_report,
+    }, indent=2))
+    return 0
+
+
+def cmd_presets(args) -> int:
+    from airwave_tpu_torch.assets import bundled
+    from airwave_tpu_torch.assets.eq_library import EqualizerManager
+    from airwave_tpu_torch.assets.hrir_library import HRIRManager
+
+    base = args.data_dir
+    eq = EqualizerManager(os.path.join(base, "eq"))
+    hrir = HRIRManager(os.path.join(base, "hrir"), device=_device(args))
+
+    if args.presets_command == "seed":
+        bundled.seed_bundled_presets(eq, hrir, os.path.join(base, "staging"))
+        print(f"seeded {len(eq.presets())} EQ + {len(hrir.presets())} HRIR "
+              f"presets into {base}")
+        return 0
+    if args.presets_command == "list":
+        for preset in hrir.presets():
+            print(f"hrir  {preset.id[:8]}  {preset.display_name}  "
+                  f"{preset.channel_count}ch@{preset.sample_rate:.0f}")
+        for preset in eq.presets():
+            print(f"eq    {preset.id[:8]}  {preset.display_name}")
+        return 0
+    if args.presets_command == "import":
+        failures = 0
+        for path in args.files:
+            try:
+                if path.lower().endswith(".wav"):
+                    preset = hrir.import_preset(path)
+                else:
+                    preset = eq.import_preset(path)
+                print(f"imported {preset.display_name} ({preset.id[:8]})")
+            except Exception as err:  # noqa: BLE001
+                failures += 1
+                print(f"FAIL {path}: {err}", file=sys.stderr)
+        return 1 if failures else 0
+    return 2
+
+
+def build_demo(data_dir: str, device: str, eq_preset: Optional[str] = None):
+    """Seed the bundled presets into `data_dir` and wire cmd_demo's runtime
+    on `device`: SyntheticTransport -> AudioRuntimeController ->
+    StreamPipeline(transport, graph.process) -> AudioEffectGraph(
+    SpatialEffect(batch=1)), the coordinators, and the synthetic output's
+    profile bound to the Neutral HRIR and the first EQ preset whose name
+    contains `eq_preset`. Nothing is launched. Returns the objects by name
+    (the pipeline factory reads `graph.process` at each start)."""
+    import types
+
+    from airwave_tpu_torch.assets import bundled
+    from airwave_tpu_torch.assets.eq_library import EqualizerManager
+    from airwave_tpu_torch.assets.hrir_library import HRIRManager
+    from airwave_tpu_torch.assets.profiles import DeviceProfileManager
+    from airwave_tpu_torch.assets.store import JSONStore
+    from airwave_tpu_torch.graph.effect_graph import AudioEffectGraph
+    from airwave_tpu_torch.graph.spatial_effect import SpatialEffect
+    from airwave_tpu_torch.runtime.controller import AudioRuntimeController
+    from airwave_tpu_torch.runtime.coordinators import (
+        DeviceProfileRuntimeCoordinator,
+        OutputDeviceDiscoveryCoordinator,
+    )
+    from airwave_tpu_torch.runtime.pipeline import StreamPipeline
+    from airwave_tpu_torch.runtime.scheduler import ManualScheduler
+    from airwave_tpu_torch.runtime.state import AudioRuntimeState
+    from airwave_tpu_torch.runtime.synthetic_transport import (
+        SyntheticTransport,
+    )
+    from airwave_tpu_torch.runtime.transport import OutputDeviceDescriptor
+
+    eq = EqualizerManager(os.path.join(data_dir, "eq"))
+    hrir = HRIRManager(os.path.join(data_dir, "hrir"), device=device)
+    bundled.seed_bundled_presets(eq, hrir, os.path.join(data_dir, "staging"))
+    profiles = DeviceProfileManager(
+        JSONStore(os.path.join(data_dir, "profiles.json")))
+
+    output = OutputDeviceDescriptor(uid="synthetic-out", name="Synthetic",
+                                    nominal_sample_rate=48_000.0)
+    transport = SyntheticTransport(output)
+    scheduler = ManualScheduler()
+    state = AudioRuntimeState()
+    trail: List[str] = []
+    state.observe(lambda s: trail.append(s.status.value))
+
+    spatial = SpatialEffect(batch=1, sample_rate=48_000.0, device=device)
+    graph = AudioEffectGraph(spatial, device=device)
+    controller = AudioRuntimeController(
+        transport=transport,
+        pipeline_factory=lambda: StreamPipeline(transport, graph.process),
+        effect_graph=graph,
+        state=state,
+        scheduler=scheduler,
+    )
+    coordinator = DeviceProfileRuntimeCoordinator(
+        profiles, hrir, eq, controller, spatial
+    )
+    OutputDeviceDiscoveryCoordinator(transport, profiles).launch()
+
+    neutral = next((p for p in hrir.presets() if "Neutral" in p.display_name),
+                   None)
+    if neutral is not None:
+        profiles.set_hrir_preset_id(output.uid, neutral.id)
+    eq_applied = None
+    if eq_preset:
+        match = next((p for p in eq.presets()
+                      if eq_preset.lower() in p.display_name.lower()),
+                     None)
+        if match is not None:
+            profiles.set_equalizer_preset_id(output.uid, match.id)
+            eq_applied = match.display_name
+        else:
+            print(f"warning: no bundled EQ preset matches "
+                  f"{eq_preset!r}; running without EQ", file=sys.stderr)
+    return types.SimpleNamespace(
+        eq=eq, hrir=hrir, profiles=profiles, output=output,
+        transport=transport, scheduler=scheduler, state=state, trail=trail,
+        spatial=spatial, graph=graph, controller=controller,
+        coordinator=coordinator, eq_applied=eq_applied)
+
+
+def cmd_demo(args) -> int:
+    from airwave_tpu_torch.shell.presentation import present_status
+
+    device = _device(args)
+    demo = build_demo(args.data_dir, device, args.eq_preset)
+    demo.coordinator.launch()
+    block = 512
+    total_blocks = int(args.seconds * 48_000 / block)
+    peak = 0.0
+    for _ in range(total_blocks):
+        out = demo.transport.pump(block)
+        if out is not None:
+            peak = max(peak, float(np.max(np.abs(out))))
+        demo.scheduler.advance(block / 48_000.0)
+
+    presentation = present_status(demo.state)
+    print(json.dumps({
+        "status": demo.state.status.value,
+        "title": presentation.title,
+        "severity": presentation.severity,
+        "health": list(presentation.health_lines),
+        "status_trail": demo.trail[-12:],
+        "frames_pumped": demo.transport.frames_pumped,
+        "spatial_ready": demo.spatial.is_ready,
+        "equalizer_preset": demo.eq_applied,
+        "output_peak": round(peak, 4),
+        "device": device,
     }, indent=2))
     return 0
 
@@ -431,6 +582,22 @@ def build_parser() -> argparse.ArgumentParser:
                              "long renders; EQ applies from sample 0 with "
                              "no 20 ms activation ramp)")
     render.set_defaults(fn=cmd_render)
+
+    presets = sub.add_parser("presets", help="manage preset libraries")
+    _device_flags(presets)
+    presets_sub = presets.add_subparsers(dest="presets_command", required=True)
+    presets_sub.add_parser("seed")
+    presets_sub.add_parser("list")
+    imp = presets_sub.add_parser("import")
+    imp.add_argument("files", nargs="+")
+    presets.set_defaults(fn=cmd_presets)
+
+    demo = sub.add_parser("demo", help="run the full runtime on a synthetic "
+                                       "transport")
+    demo.add_argument("--seconds", type=float, default=1.0)
+    demo.add_argument("--eq-preset", help="bundled EQ preset name substring")
+    _device_flags(demo)
+    demo.set_defaults(fn=cmd_demo)
 
     serve = sub.add_parser("serve", help="TCP streaming render server")
     serve.add_argument("--hrir", help="HRIR WAV (single-profile pool)")

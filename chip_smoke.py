@@ -26,7 +26,9 @@ script's elapsed seconds):
      bank's R, mac_kmajor_pages at B=4096 with 3 and 2 pages) at the
      steady O, the uniform all-dual fade O and the three-half fade bank's
      O (12, its own instance timed in turns with the generic kernel and
-     equal to it bit for bit, and 96);
+     equal to it bit for bit, and 96); and the live runtime's mac_kmajor
+     at B=1 on the bundled 4096-tap Neutral bank (R=36, O=4) and its
+     Neutral -> Room fade bank (O=8);
   4. bake: models.bake.bake at full width (B=16384 streams, S=2, T=512, a
      synthetic 4320-tap HRIR bank, a 10-filter EQ) over 32 blocks with
      blocks_per_step=8 and 1; the outputs are finite and non-silent, the two
@@ -120,6 +122,23 @@ script's elapsed seconds):
      mac_kmajor_pages): 4 sampled outputs within 1e-5 of float64 (the graph
      path past its 20 ms EQ activation ramp), and each path's realtime
      multiple;
+ 20. presets: shell.app.main(["presets", "seed" | "list" | "import"]) in a
+     fresh data directory (3 HRIR and 5 EQ presets, then the phase's WAV
+     and APO file imported), and the imported HRIR activated by a port
+     HRIRManager with no device: its renderer on cuda:0, equal to the CPU
+     one within 1e-6;
+ 21. demo: `demo --seconds 5 --eq-preset Bass` through shell.app.main
+     (processing on cuda:0, one mac_kmajor launch per engine block), then
+     the objects cmd_demo wires (shell.app.build_demo: SyntheticTransport,
+     AudioRuntimeController, StreamPipeline, AudioEffectGraph over
+     SpatialEffect(batch=1), the coordinators) driven for 940 blocks with
+     the profile's HRIR switched Neutral -> Room at block 470 (the JAX
+     controller's full re-prepare: a pipeline restart without a new
+     capture verification, and a crossfade in the engine): the steady
+     Neutral segment past the EQ ramp, the fade blocks and the steady Room
+     segment each within 1e-5 of float64; mac_kmajor once a block, at O=8
+     in the fade blocks; host ms per block, the card's ms per block and
+     busy share from torch.profiler, the realtime multiple;
 then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Needs no network; imports no jax.
@@ -146,7 +165,8 @@ import numpy as np
 import torch
 
 from airwave_tpu_torch import native
-from airwave_tpu_torch.assets import channel_maps
+from airwave_tpu_torch.assets import bundled, channel_maps
+from airwave_tpu_torch.assets.hrir_library import HRIRManager
 from airwave_tpu_torch.device import apply_precision_policy, precision_is_strict
 from airwave_tpu_torch.graph.renderer import (build_hrir_time_domain,
                                               prepare_renderer)
@@ -161,6 +181,8 @@ from airwave_tpu_torch.ops import eq_block, upols
 from airwave_tpu_torch.runtime.stream_pool import (PoolProfile, StreamPool,
                                                    pool_step_body)
 from airwave_tpu_torch.shell import app as shell_app
+from airwave_tpu_torch.runtime.transport import TapPurpose
+from airwave_tpu_torch.shell.presentation import present_status
 from airwave_tpu_torch.shell.serve import RenderServer
 from airwave_tpu_torch.shell.wire_client import (_LEN, _read_exact,
                                                  render_via_server)
@@ -232,6 +254,10 @@ SERVE_CHECK_FRAMES = 16 * BLOCK + 77
 SERVE_PROFILE_CALLS = 40    # pump calls traced by torch.profiler under load
 CHECKPOINT_BLOCKS = 8       # blocks streamed before and after the checkpoint
 CLI_FRAMES = 2 * 48_000
+DEMO_CLI_SECONDS = 5.0      # demo --seconds of the CLI run
+DEMO_BLOCKS = 940           # blocks pumped through the wired demo (~10 s)
+DEMO_SWAP_BLOCK = 470       # where the profile's HRIR goes Neutral -> Room
+DEMO_PROFILED_BLOCKS = 100  # blocks traced by torch.profiler after the run
 RENDER_FILES, RENDER_SECONDS = 16, 30
 
 
@@ -565,6 +591,26 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
                           2 * n * Kp * R * O * paged_b))
             del pages, bank, stacked
     torch.cuda.empty_cache()
+
+    # The live runtime (demo): one lane, the bundled 4096-tap Neutral bank
+    # as the single-block operand at cursor 0 (R from the bank, not 40), and
+    # the Neutral -> Room fade bank (O = 8) of a profile's HRIR swap.
+    neutral, room = (prepare_renderer(
+        wavio.WAVData(SAMPLE_RATE, bundled.synthesize_hrir(style)),
+        channel_maps.STEREO, SAMPLE_RATE, BLOCK, device=dev).conv_params
+        for style in ("neutral", "room"))
+    for params in (neutral, upols.xfade_conv_params(neutral, room)):
+        h = upols._rotated_operand(upols.single_block_bank(params, Kp),
+                                   0).contiguous()
+        O, R = h.shape[1], h.shape[2]
+        fdl = tensor((Kp, R, 1))
+        measure("mac_kmajor", f"demo K={Kp} R={R} O={O} B=1",
+                lambda: mk.mac_kmajor(fdl, h), lambda: mk.mac_kmajor_ref(fdl, h),
+                lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
+                lambda: torch.einsum("krb,kor->okb", fdl, h),
+                bound(4 * (fdl.numel() + h.numel() + O * Kp),
+                      2 * Kp * R * O), bank="bundled 4096-tap")
+        del fdl, h
     return cases
 
 
@@ -2209,6 +2255,269 @@ def render_phase(files: ServeFiles, rng: np.random.Generator,
     return launches
 
 
+def run_main(*argv: str):
+    """shell.app.main(argv) in process: (exit code, stdout)."""
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        rc = shell_app.main(list(argv))
+    return rc, captured.getvalue()
+
+
+def presets_phase(files: ServeFiles, smi: str) -> None:
+    """`presets seed`, `list`, `import` (the phase's 14-channel HRIR WAV and
+    the APO preset file) and `list` through shell.app.main in a fresh data
+    directory; then the imported HRIR activated by a port HRIRManager with
+    no device, on the card, against the same activation on the CPU."""
+    with tempfile.TemporaryDirectory() as data:
+        base = ("--data-dir", data)
+        t0 = time.perf_counter()
+        runs = [run_main(*base, "presets", "seed"),
+                run_main(*base, "presets", "list"),
+                run_main(*base, "presets", "import", files.hrir, files.eq),
+                run_main(*base, "presets", "list")]
+        seconds = time.perf_counter() - t0
+
+        def counts(listing: str) -> dict:
+            kinds = [line.split()[0] for line in listing.splitlines()]
+            return {k: kinds.count(k) for k in ("hrir", "eq")}
+
+        listed = [counts(runs[1][1]), counts(runs[3][1])]
+        manager = HRIRManager(os.path.join(data, "hrir"))
+        imported = next(p for p in manager.presets()
+                        if not p.is_bundled)
+        errors = []
+        manager.activate_preset(imported.id, SAMPLE_RATE,
+                                completion=errors.append)
+        card = manager.published_renderer
+        cpu = HRIRManager(os.path.join(data, "hrir"), device="cpu")
+        cpu.activate_preset(imported.id, SAMPLE_RATE)
+        bank_err = rel_rms(card.conv_params.Gflip2.cpu().numpy(),
+                           cpu.published_renderer.conv_params.Gflip2.numpy())
+    device = str(card.conv_params.Gflip2.device)
+    phase("presets", card=smi, rc=[rc for rc, _ in runs], listed=listed,
+          seed_line=runs[0][1].strip(), imported=runs[2][1].splitlines(),
+          activation_errors=[str(e) for e in errors],
+          renderer_device=device, renderer_partitions=card.partition_count,
+          bank_rel_rms_vs_cpu=bank_err, seconds=seconds)
+    if [rc for rc, _ in runs] != [0, 0, 0, 0]:
+        raise AssertionError(f"presets: exit codes {[rc for rc, _ in runs]}")
+    if listed != [{"hrir": 3, "eq": 5}, {"hrir": 4, "eq": 6}]:
+        raise AssertionError(f"presets: listed {listed}")
+    if errors != [None] or device != "cuda:0" or not bank_err <= KERNEL_TOL:
+        raise AssertionError(f"presets: activation {errors} on {device}, "
+                             f"bank rel-RMS {bank_err}")
+
+
+def demo_reference(x, banks, t_swap, design) -> np.ndarray:
+    """float64 output of the demo's graph for its recorded input x [2, n].
+
+    The spatial path: the first bank from an empty history, then at t_swap
+    the coordinator's crossfaded swap (two set_renderer calls before the
+    next block restart the fade once, from the lerped bank at ramp
+    1/fade), both banks over the whole history. The EQ: each publication
+    (at 0 and again at the swap's re-prepare) ramps over EQ_RAMP samples
+    from what was heard to its cascade started from rest."""
+    n = x.shape[-1]
+    r = np.minimum((np.arange(n) - t_swap + 1.0) / EQ_RAMP, 1.0)
+    w_old = np.where(r > 0.0, (1.0 - r) * (1.0 - 1.0 / EQ_RAMP), 1.0)
+    dry = blend_dry(banks, [w_old, 1.0 - w_old], x)
+    preamp, coeffs = design
+    y = dry.copy()
+    for t in (0, t_swap):
+        fresh = np.zeros_like(dry)
+        fresh[:, t:] = cascade(dry[:, t:], preamp, coeffs)
+        p = np.clip((np.arange(n) - t + 1.0) / EQ_RAMP, 0.0, 1.0)
+        y = (1.0 - p) * y + p * fresh
+    return y
+
+
+def demo_phase(rng: np.random.Generator, smi: str) -> dict:
+    """The live runtime on the card. First `demo --seconds 5 --eq-preset
+    Bass` through shell.app.main in process, each of the spatial engine's
+    blocks counted. Then the objects cmd_demo wires (shell.app.build_demo)
+    driven directly for DEMO_BLOCKS blocks with every graph callback's input
+    and output recorded, the profile's HRIR switched from Neutral to Room at
+    DEMO_SWAP_BLOCK; the steady Neutral segment (past the EQ ramp), the
+    fade blocks and the steady Room segment against float64; mac_kmajor
+    launched once a block, at O = 8 in the fade blocks; host wall per
+    block, the card's time per block from torch.profiler and its busy
+    share, the realtime multiple. Returns the launches of both runs."""
+    blocks = []
+    build = shell_app.build_demo
+
+    def counting_build(*args, **kwargs):
+        demo = build(*args, **kwargs)
+        process = demo.spatial.engine.process_block
+
+        def counted(x):
+            blocks.append(x.shape)
+            return process(x)
+
+        demo.spatial.engine.process_block = counted
+        return demo
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as data:
+        shell_app.build_demo = counting_build
+        mk.reset_launch_count()
+        t0 = time.perf_counter()
+        try:
+            rc, out = run_main("--data-dir", data, "demo", "--seconds",
+                               str(DEMO_CLI_SECONDS), "--eq-preset", "Bass")
+        finally:
+            shell_app.build_demo = build
+        cli_seconds = time.perf_counter() - t0
+        launches["demo_cli"] = launches_now()
+    report = json.loads(out)
+    phase("demo_cli", card=smi, rc=rc, report=report, seconds=cli_seconds,
+          engine_blocks=len(blocks), launches=launches["demo_cli"])
+    if (rc != 0 or report["status"] != "processing"
+            or report["device"] != "cuda:0" or not report["spatial_ready"]
+            or report["equalizer_preset"] != "Bass Booster"):
+        raise AssertionError(f"demo cli: rc {rc}, report {report}")
+    if not blocks or launches["demo_cli"]["mac_kmajor"]["total"] != len(
+            blocks) or launches["demo_cli"]["mac_kmajor_pages"]["total"]:
+        raise AssertionError(f"demo cli: {len(blocks)} engine blocks, "
+                             f"launches {launches['demo_cli']}")
+
+    with tempfile.TemporaryDirectory() as data:
+        demo = build(data, "cuda:0", "Bass")
+        engine = demo.spatial.engine
+        process = demo.graph.process
+        calls = []  # (x, y, host seconds, fading)
+
+        def recorded(x):
+            fading = bool(engine._xfade_segments)
+            t = time.perf_counter()
+            y = process(x)
+            calls.append((x[0].copy(), y[0].copy(),
+                          time.perf_counter() - t, fading))
+            return y
+
+        demo.graph.process = recorded
+        neutral, room = (next(p for p in demo.hrir.presets()
+                              if p.display_name == name)
+                         for name in ("Neutral", "Room"))
+        eq_id = demo.profiles.equalizer_preset_id(demo.output.uid)
+        mk.reset_launch_count()
+        t0 = time.perf_counter()
+        demo.coordinator.launch()
+        t_swap = trail_at_swap = None
+        for b in range(DEMO_BLOCKS):
+            if b == DEMO_SWAP_BLOCK:
+                if demo.hrir.active_preset_id != neutral.id:
+                    raise AssertionError("demo: Neutral is not active")
+                t_swap, trail_at_swap = len(calls) * BLOCK, len(demo.trail)
+                swap_t0 = time.perf_counter()
+                demo.profiles.set_hrir_preset_id(demo.output.uid, room.id)
+                swap_seconds = time.perf_counter() - swap_t0
+            demo.transport.pump(BLOCK)
+            demo.scheduler.advance(BLOCK / SAMPLE_RATE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["demo"] = launches_now()
+        status = demo.state.status.value
+        if demo.hrir.active_preset_id != room.id:
+            raise AssertionError("demo: Room is not active after the swap")
+        trail = list(demo.trail)
+        purpose = demo.controller.pipeline.purpose
+        design = bd.design_cascade(demo.eq.load_definition(eq_id),
+                                   SAMPLE_RATE)
+        banks = [build_hrir_time_domain(
+            wavio.load(os.path.join(demo.hrir.directory, p.filename)),
+            channel_maps.STEREO, SAMPLE_RATE)
+            for p in (neutral, room)]
+
+        # The card's time per block: torch.profiler over more blocks of the
+        # same stream (for the record; these blocks are not checked).
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(DEMO_PROFILED_BLOCKS):
+                demo.transport.pump(BLOCK)
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t1
+        card_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      ) / 1e3 / DEMO_PROFILED_BLOCKS
+        del calls[-DEMO_PROFILED_BLOCKS:]
+
+        # One engine block's device step alone, in CUDA-event time (steady
+        # and fade), on device-resident input.
+        with torch.inference_mode():
+            p = engine.eq_runtime.active.params
+            x_dev = torch.zeros((1, SPEAKERS, BLOCK), device=engine.device
+                                ).normal_(0.0, 0.25)
+            state = engine.state
+            dual = upols.xfade_conv_params(engine._conv_params,
+                                           engine._conv_params)
+            dual_ops = make_chain_operands(dual, None, 1, engine._k_padded)
+            ramp = torch.from_numpy(upols.xfade_ramp(EQ_RAMP, BLOCK)).to(
+                engine.device)
+            tl = engine.eq_runtime.transition_length
+            steady_ms = cuda_ms(lambda: chain_step_fn(
+                engine._conv_params, p, p, state, x_dev, tl, True, False,
+                False, engine._operands), 50)
+            fade_ms = cuda_ms(lambda: chain_step_fn(
+                dual, p, p, state, x_dev, tl, True, False, False, dual_ops,
+                xfade_ramp=ramp), 50)
+
+    x = np.concatenate([c[0] for c in calls], -1)
+    y = np.concatenate([c[1] for c in calls], -1)
+    host_ms = np.array([c[2] for c in calls]) * 1e3
+    fading = np.array([c[3] for c in calls])
+    n_blocks = len(calls)
+    fade_blocks = int(fading.sum())
+    ref = demo_reference(x, banks, t_swap, design)
+    fade_end = t_swap + (-(-EQ_RAMP // BLOCK)) * BLOCK
+    ramp_end = (-(-EQ_RAMP // BLOCK) + 1) * BLOCK
+    segments = {"neutral": (ramp_end, t_swap), "fade": (t_swap, fade_end),
+                "room": (fade_end, x.shape[-1])}
+    errors = {k: rel_rms(y[:, a:b], ref[:, a:b])
+              for k, (a, b) in segments.items()}
+    after_swap = trail[trail_at_swap:]
+    counts = launches["demo"]["mac_kmajor"]
+    host_per_block = float(host_ms.mean())
+    phase("demo", card=smi, status=status, status_trail=trail[-12:],
+          swap={"restarted_pipeline": "starting" in after_swap,
+                "reverified": False, "purpose_after": purpose.value,
+                "crossfaded_blocks": int(fading[t_swap // BLOCK:].sum()),
+                "seconds": swap_seconds},
+          presentation=present_status(demo.state).title,
+          blocks_processed=n_blocks, fade_blocks=fade_blocks,
+          launches=launches["demo"], rel_rms=errors, segments=segments,
+          host_ms_per_block=host_per_block,
+          host_ms_per_block_p50=float(np.percentile(host_ms, 50)),
+          host_ms_per_block_p99=float(np.percentile(host_ms, 99)),
+          card_ms_per_block=card_ms,
+          card_busy_share=card_ms / (traced_wall * 1e3 / DEMO_PROFILED_BLOCKS),
+          card_busy_share_of_callback=card_ms / host_per_block,
+          steady_step_device_ms=steady_ms, fade_step_device_ms=fade_ms,
+          wall_seconds=wall,
+          realtime_multiple=(DEMO_BLOCKS * BLOCK / SAMPLE_RATE) / wall,
+          callback_realtime_multiple=(BLOCK / SAMPLE_RATE * 1e3)
+          / host_per_block)
+    expected = {"total": n_blocks, "O=4": n_blocks - fade_blocks,
+                "O=8": fade_blocks}
+    if status != "processing" or purpose != TapPurpose.PROCESSING:
+        raise AssertionError(f"demo: status {status}, purpose {purpose}")
+    if {k: counts.get(k, 0) for k in expected} != expected or counts[
+            "total"] != n_blocks or launches["demo"]["mac_kmajor_pages"][
+            "total"]:
+        raise AssertionError(f"demo: launches {launches['demo']}, expected "
+                             f"mac_kmajor {expected}")
+    # Two fades: the activation's (a self-fade: the coordinator publishes
+    # the renderer twice) and the swap's, each ceil(EQ_RAMP / BLOCK) blocks.
+    if fade_blocks != 2 * -(-EQ_RAMP // BLOCK):
+        raise AssertionError(f"demo: {fade_blocks} fade blocks")
+    if not max(errors.values()) <= CHAIN_TOL:
+        raise AssertionError(f"demo: rel-RMS {errors} > {CHAIN_TOL}")
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2260,6 +2569,8 @@ def main() -> None:
         cli_phase(files, rng, smi)
         serve_grouped_phase(files, swap[0], rng, smi)
         launches.update(render_phase(files, rng, smi))
+        presets_phase(files, smi)
+    launches.update(demo_phase(rng, smi))
     phase("done", seconds=time.perf_counter() - t_start)
 
     paths = {"bake_paged": launches[BLOCKS_PER_STEP],
@@ -2269,6 +2580,9 @@ def main() -> None:
              **{path: launches[path] for path in (
                  "serve_ring", "serve_paged", "render_graph",
                  "render_throughput")},
+             **{path: {name: launches[path][name]["total"]
+                       for name in KERNELS}
+                for path in ("demo", "demo_cli")},
              **{path: {name: counts[name]["total"] for name in KERNELS}
                 for path, counts in {
                     **hotswap, **checkpoints,

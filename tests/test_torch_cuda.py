@@ -452,3 +452,63 @@ def test_three_half_fade_bank_on_card_matches_plain(cuda_device, M):
     assert mk.launch_count("mac_kmajor") == 2
     assert rel_rms(split.cpu().numpy(),
                    mk.mac_kmajor_ref(fdl, h).cpu().numpy()) <= 1e-6
+
+
+def test_demo_on_card_reaches_processing(cuda_device, tmp_path, capsys):
+    """`demo --seconds 1` on the card: "processing" on cuda:0, and one
+    mac_kmajor launch per processed block (the graph's calls through the
+    spatial engine)."""
+    import json
+
+    from airwave_tpu_torch.shell import app
+
+    blocks = []
+    build = app.build_demo
+
+    def counting_build(*args, **kwargs):
+        demo = build(*args, **kwargs)
+        process = demo.spatial.engine.process_block
+
+        def counted(x):
+            blocks.append(x.shape)
+            return process(x)
+
+        demo.spatial.engine.process_block = counted
+        return demo
+
+    app.build_demo = counting_build
+    mk.reset_launch_count()
+    try:
+        rc = app.main(["--data-dir", str(tmp_path / "d"), "demo",
+                       "--seconds", "1"])
+    finally:
+        app.build_demo = build
+    torch.cuda.synchronize()
+    report = json.loads(capsys.readouterr().out)
+    assert rc == 0 and report["device"] == "cuda:0"
+    assert report["status"] == "processing" and report["spatial_ready"]
+    assert blocks and mk.launch_count("mac_kmajor") == len(blocks)
+    assert mk.launch_count("mac_kmajor_pages") == 0
+
+
+def test_hrir_manager_activates_on_card(cuda_device, tmp_path):
+    """A port HRIRManager with no device seeds the bundled presets and
+    activates a renderer whose bank lies on cuda:0, equal to the one the
+    CPU activation builds within 1e-6."""
+    from airwave_tpu_torch.assets import bundled
+    from airwave_tpu_torch.assets.eq_library import EqualizerManager
+    from airwave_tpu_torch.assets.hrir_library import HRIRManager
+
+    card = HRIRManager(str(tmp_path / "hrir"))
+    bundled.seed_bundled_presets(EqualizerManager(str(tmp_path / "eq")), card,
+                                 str(tmp_path / "staging"))
+    preset = card.presets()[0]
+    errors = []
+    card.activate_preset(preset.id, 48_000.0, completion=errors.append)
+    assert errors == [None] and card.device == cuda_device
+    got = card.published_renderer.conv_params.Gflip2
+    assert got.device == cuda_device
+    cpu = HRIRManager(str(tmp_path / "hrir"), device="cpu")
+    cpu.activate_preset(preset.id, 48_000.0)
+    ref = cpu.published_renderer.conv_params.Gflip2
+    assert rel_rms(got.cpu().numpy(), ref.numpy()) <= 1e-6

@@ -56,7 +56,10 @@ def test_port_imports_and_bakes_with_jax_blocked():
                      "shell.loadgen", "utils.checkpoint", "utils.profiling",
                      "oracle.eq_oracle", "graph.frame_adapter",
                      "graph.eq_processor", "graph.spatial_effect",
-                     "graph.effect_graph", "__main__"):
+                     "graph.effect_graph", "assets.bundled",
+                     "assets.hrir_library", "runtime.controller",
+                     "runtime.coordinators", "shell.presentation",
+                     "tools.convert", "__main__"):
             assert "airwave_tpu_torch." + name in names, name
 
         from airwave_tpu_torch.models.bake import bake
@@ -81,7 +84,8 @@ def test_cli_help_runs_with_jax_blocked():
     code = BLOCK_JAX + textwrap.dedent("""
         import contextlib, io, runpy
         for argv in (["--help"], ["serve", "--help"], ["render", "--help"],
-                     ["client", "--help"], ["status", "--help"]):
+                     ["client", "--help"], ["status", "--help"],
+                     ["presets", "--help"], ["demo", "--help"]):
             sys.argv = ["airwave_tpu_torch", *argv]
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
@@ -96,6 +100,32 @@ def test_cli_help_runs_with_jax_blocked():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "help ok" in proc.stdout
+
+
+def test_presets_and_demo_run_with_jax_blocked(tmp_path):
+    """`presets --cpu seed` and `demo --cpu` run through the port's main
+    without jax: the libraries, the controller stack and the render graph."""
+    code = BLOCK_JAX + textwrap.dedent(f"""
+        import contextlib, io, json
+        from airwave_tpu_torch.shell.app import main
+
+        base = ["--data-dir", r"{tmp_path}/data"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main([*base, "presets", "--cpu", "seed"]) == 0
+        assert "seeded 5 EQ + 3 HRIR" in out.getvalue()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main([*base, "demo", "--cpu", "--seconds", "0.2",
+                         "--eq-preset", "Bass"]) == 0
+        report = json.loads(out.getvalue())
+        assert report["status"] == "processing" and report["device"] == "cpu"
+        assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+        print("demo ok")
+    """)
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "demo ok" in proc.stdout
 
 
 def test_grouped_pool_and_serve_profile_run_with_jax_blocked(tmp_path):
