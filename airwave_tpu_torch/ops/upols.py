@@ -363,6 +363,67 @@ def conv_step(params: ConvParams, state: ConvState, x: torch.Tensor,
     return ConvState(fdl=state.fdl, write_pos=(w + 1) % P2), y
 
 
+def migrate_full_window_fdl(fdl_old: np.ndarray, overlap: np.ndarray,
+                            write_pos: int,
+                            debt: "np.ndarray | None" = None) -> np.ndarray:
+    """Convert a FULL-window delay line (the pre-half-window carry: slots
+    hold 2T-window spectra X_t, plus the carried previous block
+    `overlap`) into the half-window line (slots hold u_t). Host numpy,
+    the reference's math: the shift theorem X_t = u_{t-1} + s ⊙ u_t with
+    s_k = (-1)^k, u_t = DFT_2T([b_t, 0]) from `overlap` (the last block),
+    and every earlier u by the backward recursion
+    u_{t-j-1} = X_{t-j} - s ⊙ u_{t-j} in float64. P full-window slots and
+    the overlap give the P+1 half-window slots the new carry needs. A
+    resumed stream continues within f64 rounding of the uninterrupted
+    render, not bit for bit.
+
+    fdl_old: [Kp, S, P, 2, B] (pad bin rows beyond K = T+1 are zero),
+    overlap: [B, S, T], write_pos: the old cursor (slot (w-1-j) mod P
+    holds X_{t-j}); debt: optional [B] per-lane missed-cursor counts,
+    repaid here (conv_roll_lanes applied per lane before the recursion,
+    so the returned line is debt-free).
+
+    Returns the new [Kp, S, P+1, 2, B] line under the SAME cursor value
+    (valid: w < P < P+1): slot (w-1-j) mod (P+1) holds u_{t-j}."""
+    kp, S, P, _, B = fdl_old.shape
+    T = overlap.shape[-1]
+    K = T + 1
+    assert overlap.shape == (B, S, T), (overlap.shape, (B, S, T))
+    w = int(write_pos)
+
+    # The line stays f32 (a resumed serving carry can be gigabytes); only
+    # the recursion's working set is f64, and each stored slot is that f64
+    # u downcast once.
+    fdl = np.asarray(fdl_old, np.float32)
+    if debt is not None:
+        d = np.asarray(debt, np.int64) % P
+        lanes = np.nonzero(d)[0]
+        if lanes.size:
+            fdl = fdl.copy()  # the caller's snapshot is not mutated
+            for b in lanes:
+                # conv_roll_lanes: new slot p takes old slot (p-d) mod P.
+                src = (np.arange(P) - d[b]) % P
+                fdl[:, :, :, :, b] = np.take(fdl[:, :, :, :, b], src, axis=2)
+
+    padded = np.zeros((B, S, 2 * T), np.float64)
+    padded[..., :T] = np.asarray(overlap, np.float64)
+    u = np.fft.rfft(padded, axis=-1)               # [B, S, K] complex128
+    u = np.transpose(u, (2, 1, 0))                 # [K, S, B]
+    s = ((-1.0) ** np.arange(K))[:, None, None]
+
+    new = np.zeros((kp, S, P + 1, 2, B), np.float32)
+    for j in range(P + 1):
+        slot = (w - 1 - j) % (P + 1)
+        new[:K, :, slot, 0, :] = u.real
+        new[:K, :, slot, 1, :] = u.imag
+        if j < P:
+            old_slot = (w - 1 - j) % P
+            X = (fdl[:K, :, old_slot, 0, :].astype(np.float64)
+                 + 1j * fdl[:K, :, old_slot, 1, :].astype(np.float64))
+            u = X - s * u                          # u_{t-j-1}
+    return new
+
+
 def conv_roll_lanes(state: ConvState, lane_idx: torch.Tensor,
                     shift: torch.Tensor) -> ConvState:
     """Re-align paused lanes to the shared ring cursor, in place.

@@ -19,10 +19,12 @@ is missing (`presets` takes them too, for the HRIR library's renderers).
 Multi-GPU pools (`serve --mesh-devices`, ROADMAP Queue 1 item 17) are not
 ported yet: that flag exits with a message naming the item.
 
-One deliberate difference from the JAX CLI: restore_serve_checkpoint moves
-aside ANY unreadable checkpoint (truncated, empty leaves, bad header) and
-starts fresh, where the JAX one catches only ValueError and KeyError and
-lets a truncated raw file's IndexError crash-loop the server.
+Two deliberate differences from the JAX CLI: restore_serve_checkpoint
+moves aside ANY unreadable checkpoint (truncated, empty leaves, bad header)
+and starts fresh, where the JAX one catches only ValueError and KeyError
+and lets a truncated raw file's IndexError crash-loop the server; and
+`serve` prints its listening line inside the SIGINT handler's reach, where
+a SIGINT right after the JAX line kills the server before its checkpoint.
 """
 
 from __future__ import annotations
@@ -457,15 +459,6 @@ def cmd_serve(args) -> int:
                           orphan_aliases=orphan_aliases,
                           io_mode=getattr(args, "io_mode", "selector"))
     server.start()
-    print(json.dumps({"listening": list(server.address),
-                      "max_streams": args.max_streams,
-                      "layout": layout.name,
-                      "device": str(pool.device),
-                      "mesh_devices": 1,
-                      "blocks_per_step": pool.blocks_per_step,
-                      "profile_groups": pool.groups,
-                      "restored_checkpoint": resumed,
-                      "resumable_lanes": len(server._orphans)}), flush=True)
     interval = getattr(args, "stats_interval", 0.0) or 0.0
     next_stats = time.monotonic() + interval if interval > 0 else None
     ckpt_interval = getattr(args, "checkpoint_interval", 30.0) or 0.0
@@ -473,6 +466,18 @@ def cmd_serve(args) -> int:
                  if ckpt and ckpt_interval > 0 else None)
     poll = min(1.0, interval) if interval > 0 else 1.0
     try:
+        # Printed inside the handler's reach: a caller that sends SIGINT
+        # as soon as it reads this line gets the checkpoint and exit 0.
+        print(json.dumps({"listening": list(server.address),
+                          "max_streams": args.max_streams,
+                          "layout": layout.name,
+                          "device": str(pool.device),
+                          "mesh_devices": 1,
+                          "blocks_per_step": pool.blocks_per_step,
+                          "profile_groups": pool.groups,
+                          "restored_checkpoint": resumed,
+                          "resumable_lanes": len(server._orphans)}),
+              flush=True)
         while True:
             time.sleep(poll)
             now = time.monotonic()

@@ -28,7 +28,9 @@ script's elapsed seconds):
      O (12, its own instance timed in turns with the generic kernel and
      equal to it bit for bit, and 96); and the live runtime's mac_kmajor
      at B=1 on the bundled 4096-tap Neutral bank (R=36, O=4) and its
-     Neutral -> Room fade bank (O=8);
+     Neutral -> Room fade bank (O=8); and the planner's capacity pools'
+     lane counts, no multiple of 4 (mac_kmajor at B=150,129, O=4 and 8;
+     mac_kmajor_pages at B=35,910, O=32 and 64);
   4. bake: models.bake.bake at full width (B=16384 streams, S=2, T=512, a
      synthetic 4320-tap HRIR bank, a 10-filter EQ) over 32 blocks with
      blocks_per_step=8 and 1; the outputs are finite and non-silent, the two
@@ -139,6 +141,42 @@ script's elapsed seconds):
      segment each within 1e-5 of float64; mac_kmajor once a block, at O=8
      in the fade blocks; host ms per block, the card's ms per block and
      busy share from torch.profiler, the realtime multiple;
+ 22. feeder_single_block, feeder_paged: runtime.feeder.DeviceFeeder (two
+     pinned host buffers per input shape, the copy on a stream of its own,
+     an event the step waits on) over chain_step_fn at B=16384 for 24
+     blocks and chain_step_multi_fn at M=8 for 6 steps (537 MB of input a
+     step) of distinct seeded host input, against the unstaged loop on an
+     equal fresh state: equal bit for bit, 4 sampled lanes within 1e-5 of
+     float64, one mac_kmajor launch per block and one mac_kmajor_pages
+     launch per step; wall ms per block or step of both loops, the pinned
+     bytes held, and from torch.profiler the copies' and the kernels'
+     streams and their overlap (for the record);
+ 23. migration: the committed round-3 fixtures (ring and grouped) restored
+     into port pools on the card and continued within 1e-5 of the
+     uninterrupted render; then an 8192-lane ring pool's round-3
+     full-window carry, built from the blocks it was fed, written as a
+     schema-less npz by utils.checkpoint.save_pytree and handed to
+     shell.app.restore_serve_checkpoint on a fresh pool: migrated, not moved
+     aside, sampled lanes within 1e-5 of the uninterrupted pool and of
+     float64; the file's bytes and the load-and-migrate seconds; the same
+     file refused by a paged pool with the versioned error;
+ 24. planner: utils.memory_planner.cuda_pool_round_memory on both tiers at
+     probe batches 512 and 1024 (per-lane bytes within 5%; steady,
+     EQ-crossfade and hot-swap peaks), each tier built at pool_capacity's
+     max_streams for a 24e9-byte budget and run through one round of each
+     kind (the peak at most 0.85 x 24e9, the calibrated estimate over it at
+     most 1.3), the hand model beside this run's measured peaks, the whole
+     card's recommendation, and `python -m
+     airwave_tpu_torch.tools.plan_capacity --blocks-per-step 8 --calibrate
+     --probe-batch 512 --hbm-gb 24` as a process (calibrated, per-lane
+     bytes within 5% of the in-process probe's);
+ 25. path_checks: every MAC launch of the migration phase, and a re-run of
+     the planner's probe rounds (their lanes and the 8-lane warm-up) and
+     capacity rounds on seeded input, held against the kernel's plain
+     version on the same operands (rel-RMS at most 1e-6), one case per
+     kernel and shape: the widths only these paths give (the capacity
+     pools' lane counts, which need not be a multiple of 4, the probes'
+     and the fixtures' 4-lane pools);
 then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Needs no network; imports no jax.
@@ -178,15 +216,19 @@ from airwave_tpu_torch.models.binaural import (BinauralChain, BinauralEngine,
                                                make_chain_operands)
 from airwave_tpu_torch.ops import biquad_design as bd
 from airwave_tpu_torch.ops import eq_block, upols
-from airwave_tpu_torch.runtime.stream_pool import (PoolProfile, StreamPool,
-                                                   pool_step_body)
+from airwave_tpu_torch.runtime.feeder import DeviceFeeder
+from airwave_tpu_torch.runtime.stream_pool import (PoolProfile, PoolState,
+                                                   StreamPool, pool_step_body)
 from airwave_tpu_torch.shell import app as shell_app
 from airwave_tpu_torch.runtime.transport import TapPurpose
 from airwave_tpu_torch.shell.presentation import present_status
 from airwave_tpu_torch.shell.serve import RenderServer
 from airwave_tpu_torch.shell.wire_client import (_LEN, _read_exact,
                                                  render_via_server)
-from airwave_tpu_torch.utils.checkpoint import checkpoint_path
+from airwave_tpu_torch.utils import checkpoint, memory_planner
+from airwave_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                load_pool_snapshot)
+from airwave_tpu_torch.utils.memory_planner import device_hbm_bytes
 
 SAMPLE_RATE = 48_000.0
 BATCH, SPEAKERS, EARS, BLOCK, HRIR_TAPS = 16384, 2, 2, 512, 4320
@@ -258,6 +300,18 @@ DEMO_CLI_SECONDS = 5.0      # demo --seconds of the CLI run
 DEMO_BLOCKS = 940           # blocks pumped through the wired demo (~10 s)
 DEMO_SWAP_BLOCK = 470       # where the profile's HRIR goes Neutral -> Room
 DEMO_PROFILED_BLOCKS = 100  # blocks traced by torch.profiler after the run
+FEEDER_BLOCKS = 24          # single-block steps through the feeder
+FEEDER_STEPS = 6            # 8-block steps through the feeder (537 MB each)
+FEEDER_PROFILED = 6         # feeder steps traced by torch.profiler
+MIGRATION_ROUNDS = 12       # full rounds before the round-3 carry is built
+MIGRATION_CONTINUED = 6     # rounds after the migrated restore
+PLANNER_PROBES = (512, 1024)  # probe batches of the calibration
+PLANNER_HBM = 24e9          # the capacity pools' device-memory budget
+# The capacity pools' lane counts on an H100 80GB at that budget (the
+# planner's recommendation moves with the calibration): lane counts that
+# are no multiple of 4, which take the kernels' 4-byte copies and scalar
+# stores, as kernel cases.
+CAPACITY_LANES = {1: 150_129, BLOCKS_PER_STEP: 35_910}
 RENDER_FILES, RENDER_SECONDS = 16, 30
 
 
@@ -424,8 +478,9 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
         torch.cuda.empty_cache()
 
     # The bake, the ring pool, the serving ring pool, the render CLI's graph
-    # path (one lane per input file).
-    for B in (BATCH, POOL_LANES[1], SERVE_LANES, RENDER_FILES):
+    # path (one lane per input file), the planner's ring capacity pool.
+    for B in (BATCH, POOL_LANES[1], SERVE_LANES, RENDER_FILES,
+              CAPACITY_LANES[1]):
         # R = S * P2 * 2 with P2 = 10 (9 partitions + 1), O = E * 2.
         fdl, h = tensor((Kp, 40, B)), tensor((Kp, EARS * 2, 40))
         measure("mac_kmajor", f"single_block K={Kp} R=40 O=4 B={B}",
@@ -480,10 +535,11 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
         del pages, bank, stacked
         torch.cuda.empty_cache()
 
-    # The paged serving pool and the render CLI's --throughput bake run the
-    # same 3 pages at their own lane counts.
+    # The paged serving pool, the render CLI's --throughput bake and the
+    # planner's paged capacity pool run the same 3 pages at their own lane
+    # counts.
     n, R, O = 3, SPEAKERS * 2 * M, M * EARS * 2
-    for B in (SERVE_LANES, RENDER_FILES):
+    for B in (SERVE_LANES, RENDER_FILES, CAPACITY_LANES[BLOCKS_PER_STEP]):
         pages = [tensor((Kp, R, B)) for _ in range(n)]
         bank = tensor((n, Kp, O, R))
         stacked = torch.stack(pages)
@@ -498,8 +554,9 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
         del pages, bank, stacked
 
     # A hot-swap round's dual bank doubles the output columns: O = 8 for the
-    # single block (the ring pool at 8192 lanes, the engine at 16384) and
-    # O = 64 for the paged round. Each is timed in turns with the route the
+    # single block (the ring pool at 8192 lanes, the engine at 16384, the
+    # capacity pool) and O = 64 for the paged round (at 16384 lanes and the
+    # capacity pool's). Each is timed in turns with the route the
     # dispatch took before it had these shapes (the generic kernel; 16
     # columns per pass over the pages), which it must equal bit for bit.
     def dual(kernel, shape, new, old, args, label="dual bank"):
@@ -517,7 +574,7 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
                                  f"the previous route by up to {diff}")
 
     R, O = 40, 2 * EARS * 2
-    for B in (POOL_LANES[1], BATCH):
+    for B in (POOL_LANES[1], BATCH, CAPACITY_LANES[1]):
         fdl, h = tensor((Kp, R, B)), tensor((Kp, O, R))
         dual("mac_kmajor", f"single_block K={Kp} R={R} O={O} B={B}",
              lambda: mk.mac_kmajor(fdl, h),
@@ -530,20 +587,21 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
         del fdl, h
         torch.cuda.empty_cache()
     n, R, O = 3, SPEAKERS * 2 * M, M * 2 * EARS * 2
-    pages = [tensor((Kp, R, BATCH)) for _ in range(n)]
-    bank = tensor((n, Kp, O, R))
-    stacked = torch.stack(pages)
-    dual("mac_kmajor_pages", f"{n} pages K={Kp} R={R} O={O} B={BATCH}",
-         lambda: mk.mac_kmajor_pages(pages, bank),
-         lambda: mk.mac_kmajor_pages(pages, bank, columns=16),
-         (lambda: mk.mac_kmajor_pages_ref(pages, bank),
-          lambda: sum(mk.mac_kmajor_ref(p.double(), h.double())
-                      for p, h in zip(pages, bank)),
-          lambda: torch.einsum("pkrb,pkor->okb", stacked, bank),
-          bound(4 * (n * Kp * R * BATCH + bank.numel() + O * Kp * BATCH),
-                2 * n * Kp * R * O * BATCH)))
-    del pages, bank, stacked
-    torch.cuda.empty_cache()
+    for B in (BATCH, CAPACITY_LANES[BLOCKS_PER_STEP]):
+        pages = [tensor((Kp, R, B)) for _ in range(n)]
+        bank = tensor((n, Kp, O, R))
+        stacked = torch.stack(pages)
+        dual("mac_kmajor_pages", f"{n} pages K={Kp} R={R} O={O} B={B}",
+             lambda: mk.mac_kmajor_pages(pages, bank),
+             lambda: mk.mac_kmajor_pages(pages, bank, columns=16),
+             (lambda: mk.mac_kmajor_pages_ref(pages, bank),
+              lambda: sum(mk.mac_kmajor_ref(p.double(), h.double())
+                          for p, h in zip(pages, bank)),
+              lambda: torch.einsum("pkrb,pkor->okb", stacked, bank),
+              bound(4 * (n * Kp * R * B + bank.numel() + O * Kp * B),
+                    2 * n * Kp * R * O * B)))
+        del pages, bank, stacked
+        torch.cuda.empty_cache()
 
     # The grouped pools' per-group launches (GROUPS groups: 2048 lanes each
     # on the ring tier, 4096 on the paged tier), for the long bank (4320
@@ -719,10 +777,10 @@ def bake_phase(rng: np.random.Generator, dev: torch.device) -> dict:
     return launches
 
 
-def timing_phase(seed: int, dev: torch.device, smi: str) -> None:
+def timing_phase(seed: int, dev: torch.device, smi: str) -> int:
     """The paged chain at B=16384, M=8 on device-resident input, 192 blocks
     per call with a checksum fetched to the host (bench.py:measure's
-    pattern: one warm-up call, best of 3)."""
+    pattern: one warm-up call, best of 3). Returns the peak device memory."""
     M = BLOCKS_PER_STEP
     rng = np.random.default_rng(seed)
     hrir = (rng.standard_normal((SPEAKERS, EARS, HRIR_TAPS)) * 0.05).astype(
@@ -777,6 +835,7 @@ def timing_phase(seed: int, dev: torch.device, smi: str) -> None:
           x_realtime=audio_seconds / best, peak_memory_bytes=peak,
           device_step_ms=step_ms, device_step_profiled_ms=profiled_ms,
           device_step_top_kernels=kernels, device_step_top_ops=ops)
+    return peak
 
 
 def hrir_wav(seed: int, directory: str, taps: int = HRIR_TAPS) -> wavio.WAVData:
@@ -924,12 +983,13 @@ def saturated_round(pool: StreamPool, x: torch.Tensor, fade: bool = False):
     return run
 
 
-def pool_timing_phase(pool: StreamPool, base: np.ndarray, smi: str) -> None:
+def pool_timing_phase(pool: StreamPool, base: np.ndarray, smi: str) -> int:
     """bench.py:measure_pool_host's pattern: every lane fed one step per
     round (push_many, pump(max_rounds=1), pull_many), POOL_TIMED_BLOCKS
     blocks per lane per reading, best of 3 after two warm-up rounds. Then
     one saturated device round alone (the "_id" step on device-resident
-    input), in CUDA-event time (for the record only)."""
+    input), in CUDA-event time (for the record only). Returns the peak
+    device memory of the timed rounds."""
     lanes = np.arange(pool.max_streams)
     M, step = pool.blocks_per_step, pool.step_frames
     rounds = POOL_TIMED_BLOCKS // M
@@ -977,6 +1037,7 @@ def pool_timing_phase(pool: StreamPool, base: np.ndarray, smi: str) -> None:
           host_share=1.0 - device_ms / round_ms, peak_memory_bytes=peak,
           device_round_profiled_ms=profiled_ms,
           device_round_top_kernels=kernels, device_round_top_ops=ops)
+    return peak
 
 
 def pool_retarget_phase(wav, dev: torch.device, rng: np.random.Generator):
@@ -2518,6 +2579,574 @@ def demo_phase(rng: np.random.Generator, smi: str) -> dict:
     return launches
 
 
+def host_blocks(seed: int, shape: tuple, n: int, dev: torch.device) -> list:
+    """n blocks of distinct seeded input in pageable host memory, as a
+    caller holds it: 0.25 * N(0, 1) float32, drawn on the card (the host
+    takes seconds for gigabytes of draws) and fetched."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn(shape, generator=gen, device=dev) * 0.25)
+            .cpu().numpy() for _ in range(n)]
+
+
+def copy_overlap(fn) -> dict:
+    """fn() traced by torch.profiler: from the trace's device events, the
+    host-to-device copies and their streams, the kernels' streams, and how
+    much of the copies' time a kernel on another stream was running."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+
+    def spans(pred):
+        return [(e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"))
+                for e in events if e.get("ph") == "X" and pred(e)]
+
+    copies = spans(lambda e: e.get("cat") == "gpu_memcpy"
+                   and "HtoD" in e.get("name", ""))
+    kernels = spans(lambda e: e.get("cat") == "kernel")
+    overlapped = 0.0
+    for start, end, stream in copies:
+        reach = start
+        for a, b in sorted((max(a, start), min(b, end))
+                           for a, b, s in kernels
+                           if s != stream and a < end and b > start):
+            if b > max(a, reach):
+                overlapped += b - max(a, reach)
+                reach = b
+    copy_us = sum(end - start for start, end, _ in copies)
+    return dict(h2d_copies=len(copies), h2d_ms=copy_us / 1e3,
+                h2d_overlapped_ms=overlapped / 1e3,
+                h2d_overlap_share=overlapped / copy_us if copy_us else 0.0,
+                copy_streams=sorted({s for *_, s in copies}),
+                kernel_streams=sorted({s for *_, s in kernels}))
+
+
+def feeder_phase(wav, dev: torch.device, seed: int, smi: str) -> dict:
+    """runtime.feeder.DeviceFeeder over both chain steps at full width
+    (B=16384, S=2, T=512, the seeded 4320-tap bank, the 10-filter EQ):
+    FEEDER_BLOCKS single-block steps (chain_step_fn) and FEEDER_STEPS
+    8-block steps (chain_step_multi_fn, 537 MB of input a step) of distinct
+    seeded host input through the feeder, and the same blocks through the
+    unstaged loop (torch.from_numpy(x).to(dev), then the step) on an equal
+    fresh state: equal bit for bit, 4 sampled lanes within 1e-5 of
+    float64, one MAC launch per block or step; wall ms per block or step
+    of both loops, the pinned bytes held, and from torch.profiler (for the
+    record) the streams the copies and the kernels ran on and how much of
+    the copies' time overlapped a kernel. Returns the feeder runs'
+    launches."""
+    preamp, coeffs = bench_eq()
+    hrir = build_hrir_time_domain(wav, channel_maps.STEREO, SAMPLE_RATE)
+    lanes = sorted(int(b) for b in np.random.default_rng(seed).choice(
+        BATCH, 4, replace=False))
+    launches = {}
+    for label, M, n in (("feeder_single_block", 1, FEEDER_BLOCKS),
+                        ("feeder_paged", BLOCKS_PER_STEP, FEEDER_STEPS)):
+        renderer = prepare_renderer(wav, channel_maps.STEREO, SAMPLE_RATE,
+                                    BLOCK, lookahead=M, device=dev)
+        eq = eq_block.make_eq_params(coeffs, preamp, BLOCK, device=dev)
+        chain = BinauralChain(renderer.conv_params, eq, eq, EQ_RAMP, BLOCK,
+                              blocks_per_step=M)
+
+        def fresh():
+            P = renderer.partition_count
+            conv = (upols.make_conv_state_paged(BATCH, SPEAKERS, P, BLOCK, M,
+                                                dev) if M > 1 else
+                    upols.make_conv_state(BATCH, SPEAKERS, P, BLOCK, dev))
+            return ChainState(conv, eq_block.make_eq_state(BATCH, device=dev))
+
+        shape = ((BATCH, SPEAKERS, M, BLOCK) if M > 1
+                 else (BATCH, SPEAKERS, BLOCK))
+        xs = host_blocks(seed + M, shape, n, dev)
+        with torch.inference_mode():
+            chain(fresh(), torch.zeros(shape, device=dev))  # warm-up
+            torch.cuda.synchronize()
+            state, plain = fresh(), []
+            t0 = time.perf_counter()
+            for x in xs:
+                state, y = chain(state, torch.from_numpy(x).to(dev))
+                plain.append(y)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            del state
+            feeder = DeviceFeeder(chain, fresh(), device=dev)
+            mk.reset_launch_count()
+            t0 = time.perf_counter()
+            feeder.prime(xs[0])
+            fed = [feeder.step(x) for x in xs[1:]]
+            fed.append(feeder.flush())
+            torch.cuda.synchronize()
+            fed_s = time.perf_counter() - t0
+            launches[label] = {name: mk.launch_count(name) for name in KERNELS}
+            equal = all(torch.equal(a, b) for a, b in zip(fed, plain))
+            differ = max(float((a - b).abs().max())
+                         for a, b in zip(fed, plain))
+            idx = torch.tensor(lanes, device=dev)
+            got = torch.cat([y.index_select(0, idx).reshape(
+                len(lanes), -1, EARS, BLOCK) for y in fed], 1)
+            got = got.permute(0, 2, 1, 3).reshape(len(lanes), EARS, -1).cpu()
+            del plain, fed
+
+            def traced():
+                feeder.prime(xs[0])
+                for x in xs[1:FEEDER_PROFILED]:
+                    feeder.step(x)
+                feeder.flush()
+
+            overlap = copy_overlap(traced)
+            pinned = feeder.pinned_bytes
+            del feeder
+        lane_err = [rel_rms(got[i].numpy(), reference_lane(
+            hrir, np.concatenate([x[b].reshape(SPEAKERS, -1) for x in xs], -1),
+            preamp, coeffs)) for i, b in enumerate(lanes)]
+        del xs
+        torch.cuda.empty_cache()
+        unit = "block" if M == 1 else "step"
+        phase(label, card=smi, lanes=BATCH, blocks_per_step=M, steps=n,
+              input_bytes_per_step=int(np.prod(shape)) * 4,
+              **{f"fed_ms_per_{unit}": fed_s / n * 1e3,
+                 f"unstaged_ms_per_{unit}": plain_s / n * 1e3},
+              fed_equal_unstaged=equal, max_abs_diff=differ,
+              lanes_sampled=lanes, lane_rel_rms=lane_err,
+              launches=launches[label], pinned_bytes=pinned,
+              profiled_steps=FEEDER_PROFILED, **overlap)
+        if not equal:
+            raise AssertionError(f"{label}: fed outputs differ from the "
+                                 f"unstaged loop's (max abs {differ})")
+        if not max(lane_err) <= CHAIN_TOL:
+            raise AssertionError(f"{label}: lane rel-RMS {lane_err} > "
+                                 f"{CHAIN_TOL}")
+        used = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+        expected = {name: n if name == used else 0 for name in KERNELS}
+        if launches[label] != expected:
+            raise AssertionError(f"{label}: launches {launches[label]}, "
+                                 f"expected {expected} (one per step)")
+    return launches
+
+
+class CheckedMacs:
+    """While entered, every MAC launch of ops.upols (both kernels) is held
+    against its plain version (mk.mac_kmajor_ref, mk.mac_kmajor_pages_ref)
+    on the same operands, at the shapes the path gives it: rel-RMS at most
+    KERNEL_TOL, and exactly 0 where the reference is (a round of silence),
+    else AssertionError. The plain version is no launch, so the paths'
+    counts are unchanged. `launches` counts the checked launches by kernel,
+    `cases()` lists them by shape with their largest errors and how many
+    had a non-zero reference."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.launches = dict.fromkeys(KERNELS, 0)
+        self._shapes = {}
+
+    def __enter__(self):
+        self._saved = kernel, fused = upols.mac_kmajor, upols.mac_kmajor_pages
+
+        def mac(fdl, h, out=None, **kw):
+            if kw.get("accumulate"):
+                raise AssertionError("CheckedMacs: accumulate is not checked")
+            y = kernel(fdl, h, out=out, **kw)
+            K, R, B = fdl.shape
+            self._check("mac_kmajor", f"K={K} R={R} O={h.shape[1]} B={B}", y,
+                        mk.mac_kmajor_ref(fdl, h))
+            return y
+
+        def mac_pages(pages, bank, out=None, **kw):
+            y = fused(pages, bank, out=out, **kw)
+            K, R, B = pages[0].shape
+            self._check("mac_kmajor_pages", f"{len(pages)} pages K={K} R={R} "
+                        f"O={bank.shape[2]} B={B}", y,
+                        mk.mac_kmajor_pages_ref(pages, bank))
+            return y
+
+        upols.mac_kmajor, upols.mac_kmajor_pages = mac, mac_pages
+        return self
+
+    def __exit__(self, *exc):
+        upols.mac_kmajor, upols.mac_kmajor_pages = self._saved
+        return False
+
+    def _check(self, kernel: str, shape: str, got, ref) -> None:
+        diff = got - ref
+        ref_norm = torch.linalg.vector_norm(ref).item()
+        max_abs = diff.abs().max().item()
+        if ref_norm:
+            rel = torch.linalg.vector_norm(diff).item() / ref_norm
+        else:
+            rel = 0.0 if max_abs == 0 else float("inf")
+        del diff, ref
+        if not rel <= KERNEL_TOL:
+            raise AssertionError(f"{self.path}: {kernel} {shape}: rel-RMS "
+                                 f"{rel} against the plain version > "
+                                 f"{KERNEL_TOL}")
+        self.launches[kernel] += 1
+        case = self._shapes.setdefault((kernel, shape), dict(
+            kernel=kernel, case=f"{self.path} {shape}", launches=0,
+            nonzero_reference_launches=0, max_abs_err=0.0, rel_rms=0.0))
+        case["launches"] += 1
+        case["nonzero_reference_launches"] += bool(ref_norm)
+        case["max_abs_err"] = max(case["max_abs_err"], max_abs)
+        case["rel_rms"] = max(case["rel_rms"], rel)
+
+    def cases(self) -> list:
+        return list(self._shapes.values())
+
+
+def render_fixture(pool: StreamPool, lanes, streams, block: int,
+                   n_blocks: int) -> list:
+    """tests/test_migration.py's loop: one block per lane while its stream
+    lasts, a pump, everything available pulled."""
+    out = [[] for _ in lanes]
+    for t in range(n_blocks):
+        for j, lane in enumerate(lanes):
+            if t < streams[j].shape[1] // block:
+                pool.push(lane, streams[j][:, t * block:(t + 1) * block])
+        pool.pump()
+        for j, lane in enumerate(lanes):
+            n = pool.available(lane)
+            if n:
+                out[j].append(pool.pull(lane, n))
+    return [np.concatenate(o, axis=1) for o in out]
+
+
+def migration_fixtures(dev: torch.device) -> tuple:
+    """The committed round-3 fixtures restored into port pools on the card,
+    built as tests/test_migration.py:95,169 builds them, continued with the
+    fixtures' inputs: each lane's rel-RMS against the uninterrupted render
+    on the card, the continuation's launches and the group-rounds it ran
+    (one MAC launch each)."""
+    errs, launched, rounds = {}, {name: 0 for name in KERNELS}, 0
+    for grouped in (False, True):
+        tag = "grouped_" if grouped else ""
+        d = np.load(os.path.join(REPO, "tests", "fixtures",
+                                 f"r3_{tag}full_window_inputs.npz"))
+        block = int(d["block"])
+        n_pre, n_post = int(d["n_pre"]), int(d["n_post"])
+        x = d["x"]
+        audios = [d["hrir_a"], d["hrir_b"]] if grouped else [d["hrir_audio"]]
+        renderers = [prepare_renderer(wavio.WAVData(SAMPLE_RATE, a),
+                                      channel_maps.STEREO, SAMPLE_RATE, block,
+                                      device=dev) for a in audios]
+
+        def build():
+            if grouped:
+                return StreamPool(4, SAMPLE_RATE, None, block_size=block,
+                                  profiles=[PoolProfile(r) for r in renderers],
+                                  device=dev)
+            return StreamPool(4, SAMPLE_RATE, renderers[0], block_size=block,
+                              device=dev)
+
+        streams = [np.concatenate([x[0, :, :n_pre * block], d["extra_a"],
+                                   x[0, :, n_pre * block:]], axis=1),
+                   np.concatenate([x[1, :, :n_pre * block],
+                                   x[1, :, n_pre * block:]], axis=1)]
+        ref = build()
+        ref_out = render_fixture(
+            ref, [ref.attach(0), ref.attach(len(audios) - 1)], streams, block,
+            max(s.shape[1] // block for s in streams))
+        tails = [ref_out[0][:, (n_pre + 2) * block:],
+                 ref_out[1][:, n_pre * block:]]
+        pool = build()
+        snap = load_pool_snapshot(os.path.join(
+            REPO, "tests", "fixtures", f"r3_{tag}full_window_pool"), pool)
+        if snap.get("migrated_from") != "full-window (schema 1)":
+            raise AssertionError(f"r3 {tag or 'ring'} fixture not migrated")
+        pool.restore(snap)
+        mk.reset_launch_count()
+        got = render_fixture(pool, snap["attached"],
+                             [x[j, :, n_pre * block:] for j in range(2)],
+                             block, n_post)
+        for name in KERNELS:
+            launched[name] += mk.launch_count(name)
+        rounds += n_post * len(audios)
+        errs[f"r3_{tag or 'ring_'}fixture"] = [rel_rms(g, t)
+                                              for g, t in zip(got, tails)]
+    return errs, launched, rounds
+
+
+def migration_phase(wav, dev: torch.device, rng: np.random.Generator,
+                    smi: str) -> dict:
+    """Round-3 checkpoints into pools on the card: the committed fixtures
+    (migration_fixtures), then at full width an 8192-lane ring pool fed on
+    every lane for MIGRATION_ROUNDS rounds and snapshotted; from the blocks
+    it was fed, its round-3 full-window carry by the definition of
+    tests/test_migration.py:34 (slot (w-1-j) mod P holds X_{t-j} =
+    rfft_2T([b_{t-j-1}, b_{t-j}]) in float64, cast to f32; the overlap each
+    lane's last block), the rest of the state from the snapshot, written
+    with utils.checkpoint.save_pytree as a schema-less npz; handed to
+    shell.app.restore_serve_checkpoint on a fresh pool: migrated, not moved
+    aside, and sampled lanes continuing within 1e-5 of the uninterrupted
+    pool and of float64. The same file offered to a paged pool raises the
+    versioned error. Returns the migrated pools' launches."""
+    fixture_err, launched, fixture_rounds = migration_fixtures(dev)
+    lanes = POOL_LANES[1]
+    preamp, coeffs = bench_eq()
+    hrir = build_hrir_time_domain(wav, channel_maps.STEREO, SAMPLE_RATE)
+    a = make_pool(wav, lanes, 1, dev, bench_eq_definition())
+    every = np.array([a.attach() for _ in range(lanes)])
+    settle(a)
+    P = a.renderer.partition_count - 1  # the full-window carry's slots
+    sampled = sorted(int(b) for b in rng.choice(lanes, 4, replace=False))
+    history = {b: [] for b in sampled}
+    outputs = {b: [] for b in sampled}
+    recent = []
+    for _ in range(MIGRATION_ROUNDS):
+        x = rng.standard_normal((lanes, SPEAKERS, BLOCK), dtype=np.float32)
+        x *= 0.25
+        y = feed_round(a, every, x)
+        recent = (recent + [x])[-(P + 1):]
+        for b in sampled:
+            history[b].append(x[b])
+            outputs[b].append(y[b])
+    snap = a.snapshot()
+    T, K, Kp = BLOCK, BLOCK + 1, upols.padded_bin_count(BLOCK)
+    w = MIGRATION_ROUNDS % P  # any cursor below P
+    t0 = time.perf_counter()
+    fdl_old = np.zeros((Kp, SPEAKERS, P, 2, lanes), np.float32)
+    for j in range(P):
+        window = np.concatenate([recent[-2 - j], recent[-1 - j]], -1)
+        X = np.fft.rfft(window.astype(np.float64), axis=-1)  # [B, S, K]
+        slot = (w - 1 - j) % P
+        fdl_old[:K, :, slot, 0, :] = X.real.transpose(2, 1, 0)
+        fdl_old[:K, :, slot, 1, :] = X.imag.transpose(2, 1, 0)
+    legacy = PoolState(
+        conv=checkpoint._LegacyConvState(fdl_old, recent[-1],
+                                         np.asarray(w, np.int32)),
+        eq=snap["state"].eq)
+    meta = {"attached": [int(s) for s in snap["attached"]],
+            "eq_enabled": bool(snap["eq_enabled"]), "groups": 1,
+            "eq_runtime": checkpoint._pack_eq_runtime(snap["eq_runtime"])}
+    build_seconds = time.perf_counter() - t0
+    del snap
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "r3_ring_pool")
+        checkpoint.save_pytree(path, {"debt": np.zeros(lanes, np.int64),
+                                      "state": legacy}, extra_json=meta)
+        del legacy, fdl_old
+        file_bytes = os.path.getsize(checkpoint_path(path))
+        b = make_pool(wav, lanes, 1, dev, bench_eq_definition())
+        t0 = time.perf_counter()
+        resumed, tokens, _ = shell_app.restore_serve_checkpoint(path, b)
+        torch.cuda.synchronize()
+        load_seconds = time.perf_counter() - t0
+        kept = os.path.exists(checkpoint_path(path)) and not os.path.exists(
+            checkpoint_path(path) + ".incompatible")
+        paged = make_pool(wav, lanes, BLOCKS_PER_STEP, dev, None)
+        try:
+            load_pool_snapshot(path, paged)
+            paged_error = None
+        except checkpoint.SnapshotCompatError as err:
+            paged_error = str(err)
+        del paged
+    torch.cuda.empty_cache()
+    cont = {b_: [] for b_ in sampled}
+    all_err = 0.0
+    for _ in range(MIGRATION_CONTINUED):
+        x = rng.standard_normal((lanes, SPEAKERS, BLOCK), dtype=np.float32)
+        x *= 0.25
+        ya = feed_round(a, every, x)
+        mk.reset_launch_count()
+        yb = feed_round(b, every, x)
+        for name in KERNELS:
+            launched[name] += mk.launch_count(name)
+        all_err = max(all_err, rel_rms(yb, ya))
+        for s in sampled:
+            history[s].append(x[s])
+            outputs[s].append(ya[s])
+            cont[s].append(yb[s])
+    n_cont = MIGRATION_CONTINUED * BLOCK
+    vs_twin, vs_f64 = [], []
+    for s in sampled:
+        ref = reference_lane(hrir, np.concatenate(history[s], -1), preamp,
+                             coeffs)
+        got = np.concatenate(cont[s], -1)
+        twin = np.concatenate(outputs[s], -1)[:, -n_cont:]
+        vs_twin.append(rel_rms(got, twin))
+        vs_f64.append(rel_rms(got, ref[:, -n_cont:]))
+    del a, b
+    torch.cuda.empty_cache()
+    phase("migration", card=smi, fixtures_rel_rms=fixture_err, lanes=lanes,
+          full_window_slots=P, cursor=w, rounds_before=MIGRATION_ROUNDS,
+          rounds_continued=MIGRATION_CONTINUED,
+          carry_build_seconds=build_seconds,
+          file_bytes=file_bytes, load_and_migrate_seconds=load_seconds,
+          resumed=resumed, file_kept=kept, resume_tokens=tokens,
+          lanes_sampled=sampled, lane_rel_rms_vs_uninterrupted=vs_twin,
+          lane_rel_rms_vs_float64=vs_f64,
+          all_lanes_rel_rms_vs_uninterrupted=all_err,
+          paged_pool_error=paged_error, launches=launched)
+    worst = max(max(v) for v in fixture_err.values())
+    if not worst <= CHAIN_TOL:
+        raise AssertionError(f"migration: fixture rel-RMS {fixture_err}")
+    if not (resumed and kept):
+        raise AssertionError(f"migration: restore_serve_checkpoint resumed="
+                             f"{resumed}, file kept={kept}")
+    if not max(vs_twin + vs_f64 + [all_err]) <= CHAIN_TOL:
+        raise AssertionError(f"migration: continued lanes {vs_twin} / "
+                             f"{vs_f64} / {all_err} > {CHAIN_TOL}")
+    if not (paged_error and "schema 1" in paged_error):
+        raise AssertionError(f"migration: the paged pool took the file: "
+                             f"{paged_error}")
+    expected = {"mac_kmajor": fixture_rounds + MIGRATION_CONTINUED,
+                "mac_kmajor_pages": 0}
+    if launched != expected:
+        raise AssertionError(f"migration: launches {launched}, expected "
+                             f"{expected} (one per group per round)")
+    return launched
+
+
+def capacity_peak(wav, dev: torch.device, lanes: int, M: int,
+                  checked: CheckedMacs) -> int:
+    """Device bytes above the baseline at the peak of building a pool of
+    `lanes` lanes and running one steady, one EQ-crossfade and one hot-swap
+    round on its own carry and device-resident input
+    (memory_planner.pool_round_peak); then, the peak read, the same rounds
+    again on seeded input under `checked`, so each MAC launch at this
+    width is held against its plain version."""
+    peak, pool = memory_planner.pool_round_peak(
+        lambda: make_pool(wav, lanes, M, dev, bench_eq_definition()), dev)
+    if not all(torch.isfinite(t).all() for t in pool._state.eq):
+        raise AssertionError("capacity pool: non-finite EQ carry")
+    with checked, torch.inference_mode():
+        for kind in memory_planner.round_kinds(pool):
+            pool._state, y = memory_planner.run_round(
+                pool, kind, state=pool._state,
+                blocks=seeded_blocks(pool, lanes, dev))
+            del y
+    del pool
+    torch.cuda.empty_cache()
+    return peak
+
+
+def seeded_blocks(pool: StreamPool, lanes: int, dev: torch.device):
+    """One round's input for `lanes` lanes of the pool, 0.25 * N(0, 1) drawn
+    on the card from a fixed seed."""
+    S, M = pool.renderer.num_speakers, pool.blocks_per_step
+    shape = ((lanes, S, M, pool.block_size) if M > 1
+             else (lanes, S, pool.block_size))
+    gen = torch.Generator(device=dev).manual_seed(lanes)
+    return torch.randn(shape, generator=gen, device=dev) * 0.25
+
+
+def planner_phase(wav, dev: torch.device, measured: dict, smi: str) -> dict:
+    """utils.memory_planner on the card: cuda_pool_round_memory on both tiers
+    at probe batches PLANNER_PROBES (per-lane bytes within 5% between them;
+    the steady, EQ-crossfade and hot-swap peaks), each tier built at
+    pool_capacity(..., hbm_bytes=PLANNER_HBM, calibration=...)'s max_streams
+    with one round of each kind on device-resident input (its peak at most
+    0.85 * PLANNER_HBM, the calibrated estimate over it at most 1.3); the
+    hand model beside this run's measured peaks (pool_timing at 8192 ring
+    and 16384 paged lanes, the bake step at B=16384 M=8), the whole card's
+    recommendation, and `python -m airwave_tpu_torch.tools.plan_capacity
+    --blocks-per-step 8 --calibrate --probe-batch 512 --hbm-gb 24` as a
+    process. Each probe's rounds (at its lanes and the warm-up's) and the
+    capacity pools' rounds run once more on seeded input under CheckedMacs,
+    so every MAC width the phase launches is held against the plain
+    version; those re-runs are not the path's launches. Returns the
+    phase's launches and the checked cases."""
+    mk.reset_launch_count()
+    tiers = {}
+    checked = CheckedMacs("planner")
+    for M in (1, BLOCKS_PER_STEP):
+        cals = {}
+        for probe in PLANNER_PROBES:
+            pool = make_pool(wav, probe, M, dev, bench_eq_definition())
+            cals[probe] = memory_planner.cuda_pool_round_memory(pool)
+            with checked, torch.inference_mode():  # the rounds it measured
+                for kind in memory_planner.round_kinds(pool):
+                    for n in (memory_planner.WARMUP_LANES, probe):
+                        memory_planner.run_round(
+                            pool, kind, n, blocks=seeded_blocks(pool, n, dev))
+            del pool
+        small, large = (cals[p] for p in PLANNER_PROBES)
+        spread = {kind: small["rounds"][kind]["per_lane_bytes"]
+                  / large["rounds"][kind]["per_lane_bytes"] - 1.0
+                  for kind in large["rounds"]}
+        plan = memory_planner.pool_capacity(
+            SPEAKERS, HRIR_TAPS, BLOCK, lookahead=M, hbm_bytes=PLANNER_HBM,
+            calibration=large)
+        n = plan["max_streams"]
+        peak = capacity_peak(wav, dev, n, M, checked)
+        estimate = plan["params_bytes"] + plan["per_lane_bytes"] * n
+        lanes_ref = POOL_LANES[M]
+        hand = memory_planner.pool_capacity(SPEAKERS, HRIR_TAPS, BLOCK,
+                                            lookahead=M, hbm_bytes=PLANNER_HBM)
+        card = device_hbm_bytes()
+        tiers["ring" if M == 1 else "paged"] = dict(
+            probes={p: {"per_lane_bytes": c["per_lane_bytes"],
+                        "fixed_bytes": c["fixed_bytes"],
+                        "carry_bytes_exact": c["carry_bytes_exact"],
+                        "rounds": c["rounds"]} for p, c in cals.items()},
+            per_lane_spread=spread, max_streams=n, capacity_peak_bytes=peak,
+            calibrated_estimate_bytes=estimate,
+            estimate_over_peak=estimate / peak,
+            peak_over_budget=peak / PLANNER_HBM,
+            hand_model={"lanes": lanes_ref, "estimate_bytes":
+                        hand["params_bytes"] + hand["per_lane_bytes"]
+                        * lanes_ref, "per_lane_bytes": hand["per_lane_bytes"],
+                        "max_streams_24e9": hand["max_streams"]},
+            calibrated_at_reference_lanes=large["fixed_bytes"]
+            + large["per_lane_bytes"] * lanes_ref,
+            measured_peak_at_reference_lanes=measured[M],
+            whole_card={"hbm_bytes": card, "max_streams": memory_planner
+                        .pool_capacity(SPEAKERS, HRIR_TAPS, BLOCK,
+                                       lookahead=M, hbm_bytes=card,
+                                       calibration=large)["max_streams"],
+                        "hand_max_streams": memory_planner.pool_capacity(
+                            SPEAKERS, HRIR_TAPS, BLOCK, lookahead=M,
+                            hbm_bytes=card)["max_streams"]})
+        torch.cuda.empty_cache()
+    # The checking rounds re-run what was measured: not the path's launches.
+    launched = {name: mk.launch_count(name) - checked.launches[name]
+                for name in KERNELS}
+    bake_hand = memory_planner.estimate_paged_bake(
+        BATCH, SPEAKERS, HRIR_TAPS, BLOCK, BLOCKS_PER_STEP).total_bytes
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "airwave_tpu_torch.tools.plan_capacity",
+         "--blocks-per-step", str(BLOCKS_PER_STEP), "--calibrate",
+         "--probe-batch", str(PLANNER_PROBES[0]), "--hbm-gb", "24"],
+        cwd=REPO, env=child_env(), capture_output=True, text=True,
+        timeout=300)
+    cli_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"plan_capacity exited {proc.returncode}: "
+                             f"{proc.stderr[-1500:]}")
+    cli = json.loads(proc.stdout)
+    paged_cal = tiers["paged"]["probes"][PLANNER_PROBES[0]]
+    cli_lane_ratio = cli["per_lane_bytes"] / paged_cal["per_lane_bytes"]
+    phase("planner", card=smi, hbm_budget_bytes=PLANNER_HBM, **tiers,
+          bake_hand_estimate_bytes=bake_hand,
+          bake_measured_peak_bytes=measured["bake"], launches=launched,
+          plan_capacity_cli={k: cli.get(k) for k in (
+              "calibrated", "per_lane_bytes", "params_bytes", "max_streams",
+              "max_streams_steady", "calibration")},
+          plan_capacity_seconds=cli_seconds,
+          cli_per_lane_over_in_process=cli_lane_ratio,
+          checked_launches=checked.launches, checked_cases=checked.cases())
+    for tier, t in tiers.items():
+        if not max(abs(v) for v in t["per_lane_spread"].values()) <= 0.05:
+            raise AssertionError(f"planner ({tier}): per-lane bytes differ "
+                                 f"by more than 5% between probes: "
+                                 f"{t['per_lane_spread']}")
+        if not t["capacity_peak_bytes"] <= 0.85 * PLANNER_HBM:
+            raise AssertionError(f"planner ({tier}): the capacity pool's peak "
+                                 f"{t['capacity_peak_bytes']} is over 0.85 x "
+                                 f"{PLANNER_HBM}")
+        if not t["estimate_over_peak"] <= 1.3:
+            raise AssertionError(f"planner ({tier}): estimate over peak "
+                                 f"{t['estimate_over_peak']} > 1.3")
+    if not (cli["calibrated"] is True and abs(cli_lane_ratio - 1) <= 0.05):
+        raise AssertionError(f"planner: plan_capacity --calibrate gave {cli}")
+    return launched, checked.cases()
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2530,12 +3159,12 @@ def main() -> None:
     rng = np.random.default_rng(args.seed)
     cases = kernel_phase(rng, dev)
     launches = bake_phase(rng, dev)
-    timing_phase(args.seed, dev, smi)
+    peaks = {"bake": timing_phase(args.seed, dev, smi)}
     with tempfile.TemporaryDirectory() as tmp:
         wav = hrir_wav(args.seed, tmp)
     for label, M in (("pool", 1), ("pool_paged", BLOCKS_PER_STEP)):
         pool, base, launches[label] = pool_phase(label, wav, dev, M, rng)
-        pool_timing_phase(pool, base, smi)
+        peaks[M] = pool_timing_phase(pool, base, smi)
         del pool, base
         torch.cuda.empty_cache()
     pool_retarget_phase(wav, dev, rng)
@@ -2571,6 +3200,16 @@ def main() -> None:
         launches.update(render_phase(files, rng, smi))
         presets_phase(files, smi)
     launches.update(demo_phase(rng, smi))
+    launches.update(feeder_phase(wav, dev, args.seed, smi))
+    with CheckedMacs("migration") as checked:
+        launches["migration"] = migration_phase(wav, dev, rng, smi)
+    launches["planner"], planner_checks = planner_phase(wav, dev, peaks, smi)
+    path_checks = checked.cases() + planner_checks
+    phase("path_checks", tolerance_rel_rms=KERNEL_TOL, cases=path_checks)
+    silent = [c["case"] for c in path_checks
+              if not c["nonzero_reference_launches"]]
+    if silent:
+        raise AssertionError(f"path_checks: only silence checked at {silent}")
     phase("done", seconds=time.perf_counter() - t_start)
 
     paths = {"bake_paged": launches[BLOCKS_PER_STEP],
@@ -2579,7 +3218,8 @@ def main() -> None:
              "pool_paged": launches["pool_paged"],
              **{path: launches[path] for path in (
                  "serve_ring", "serve_paged", "render_graph",
-                 "render_throughput")},
+                 "render_throughput", "feeder_single_block", "feeder_paged",
+                 "migration", "planner")},
              **{path: {name: launches[path][name]["total"]
                        for name in KERNELS}
                 for path in ("demo", "demo_cli")},
@@ -2594,6 +3234,7 @@ def main() -> None:
     for name, function in (("mac_kmajor", None),
                            ("mac_kmajor_pages", PAGED_MAC_FUNCTION)):
         own = [c for c in cases if c["kernel"] == name]
+        checks = [c for c in path_checks if c["kernel"] == name]
         main_case = own[0]
         by_path = {path: counts[name] for path, counts in paths.items()}
         entries.append({
@@ -2601,11 +3242,12 @@ def main() -> None:
             "replaces": KERNEL_REPLACES, "replaces_function": function,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(c["max_abs_err"] for c in own),
+            "max_abs_err": max(c["max_abs_err"] for c in own + checks),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "cases": own,
+            "path_checks": checks,
         })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

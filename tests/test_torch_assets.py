@@ -2,8 +2,8 @@
 device profiles, the EQ and HRIR preset libraries, latest-wins activation
 and the bundled presets.
 
-Each case of tests/test_assets.py (all but the directory watcher, which is
-not ported yet) runs twice, once on each package's own classes, in a
+Each case of tests/test_assets.py (all but the directory watcher, held in
+tests/test_torch_settings.py) runs twice, once on each package's own classes, in a
 directory of its own, with the same injected clock and the same
 deterministic preset ids (uuid.uuid4 patched the same way for both). Each
 run keeps its assertions and returns a trace; the traces must be equal.

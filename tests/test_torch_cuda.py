@@ -5,6 +5,10 @@ and no jax:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
 
+import contextlib
+import io
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -512,3 +516,148 @@ def test_hrir_manager_activates_on_card(cuda_device, tmp_path):
     cpu.activate_preset(preset.id, 48_000.0)
     ref = cpu.published_renderer.conv_params.Gflip2
     assert rel_rms(got.cpu().numpy(), ref.numpy()) <= 1e-6
+
+
+def test_feeder_on_card_equals_unstaged_loop(cuda_device):
+    """The pinned double buffer on the copy stream: 8 blocks of distinct
+    seeded data through DeviceFeeder at B=256 equal the unstaged loop
+    (torch.from_numpy(x).to(dev), then the step) bit for bit."""
+    import functools
+
+    from airwave_tpu_torch.models.binaural import ChainState, chain_step_fn
+    from airwave_tpu_torch.ops import eq_block
+    from airwave_tpu_torch.runtime.feeder import DeviceFeeder
+
+    rng = np.random.default_rng(11)
+    B, S, T = 256, 2, 512
+    hrir = (rng.standard_normal((S, 2, 4320)) * 0.05).astype(np.float32)
+    params = upols.make_conv_params(hrir, T, device=cuda_device)
+    eq = eq_block.unity_eq_params(T, device=cuda_device)
+    step = functools.partial(chain_step_fn, params, eq, eq,
+                             transition_length=960, spatial_enabled=True,
+                             eq_enabled=True)
+
+    def fresh():
+        return ChainState(
+            upols.make_conv_state(B, S, params.partition_count, T,
+                                  cuda_device),
+            eq_block.make_eq_state(B, device=cuda_device))
+
+    blocks = [rng.standard_normal((B, S, T)).astype(np.float32)
+              for _ in range(8)]
+    state, want = fresh(), []
+    for x in blocks:
+        state, y = step(state, torch.from_numpy(x).to(cuda_device))
+        want.append(y.cpu())
+    feeder = DeviceFeeder(step, fresh(), device=cuda_device)
+    mk.reset_launch_count()
+    feeder.prime(blocks[0])
+    got = [feeder.step(x) for x in blocks[1:]]
+    got.append(feeder.flush())
+    torch.cuda.synchronize()
+    assert feeder.steps == 8 and mk.launch_count("mac_kmajor") == 8
+    assert feeder.pinned_bytes == 2 * blocks[0].nbytes
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_calibration_per_lane_is_linear_in_the_probe(cuda_device):
+    """cuda_pool_round_memory's per-lane bytes agree within 5% at probe
+    batches 256 and 512, on both tiers, for every round kind."""
+    from airwave_tpu_torch.utils.memory_planner import cuda_pool_round_memory
+
+    wav = _wav(3, 4320)
+    eq = bd.EqualizerDefinition(preamp_db=-3.0)
+    for M in (1, 8):
+        renderer = prepare_renderer(wav, channel_maps.STEREO, 48_000.0, 512,
+                                    lookahead=M, device=cuda_device)
+        cals = []
+        for lanes in (256, 512):
+            pool = StreamPool(lanes, 48_000.0, renderer, eq_definition=eq,
+                              block_size=512, blocks_per_step=M,
+                              device=cuda_device)
+            cals.append(cuda_pool_round_memory(pool))
+            del pool
+        for kind in ("steady", "eq_xfade", "hotswap"):
+            a, b = (c["rounds"][kind]["per_lane_bytes"] for c in cals)
+            assert abs(a - b) <= 0.05 * b, (M, kind, a, b)
+        assert cals[1]["backend"] == "cuda" and cals[1]["probe_batch"] == 512
+        assert cals[1]["per_lane_bytes"] * 512 >= cals[1]["carry_bytes_exact"]
+
+
+def test_plan_capacity_verify_fits_on_card(cuda_device):
+    """plan_capacity --calibrate --verify on the card: the pool built at the
+    recommendation peaks inside the planned budget, at an estimate over
+    peak between 1 and the contract's 1.3."""
+    from airwave_tpu_torch.tools import plan_capacity
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = plan_capacity.main(["--calibrate", "--verify", "--hbm-gb", "2",
+                                   "--probe-batch", "256",
+                                   "--device", str(cuda_device)])
+    out = json.loads(buf.getvalue())
+    assert code == 0 and out["calibrated"] is True
+    verify = out["verify"]
+    assert verify["fits"] and verify["max_streams"] == out["max_streams"]
+    assert 1.0 <= verify["estimate_over_peak"] <= 1.3, verify
+
+
+def test_round3_fixture_restores_and_continues_on_card(cuda_device):
+    """The committed round-3 ring checkpoint migrates into a pool on
+    cuda:0 and continues within 1e-5 of the same migration on the CPU and
+    of the uninterrupted render (tests/test_migration.py:95)."""
+    import os
+
+    from airwave_tpu_torch.utils.checkpoint import load_pool_snapshot
+
+    fixdir = os.path.join(os.path.dirname(__file__), "fixtures")
+    d = np.load(os.path.join(fixdir, "r3_full_window_inputs.npz"))
+    block = int(d["block"])
+    n_pre, n_post = int(d["n_pre"]), int(d["n_post"])
+    x = d["x"]
+
+    def render(pool, lanes, streams, n_blocks):
+        out = [[] for _ in lanes]
+        for t in range(n_blocks):
+            for j, lane in enumerate(lanes):
+                if t < streams[j].shape[1] // block:
+                    pool.push(lane, streams[j][:, t * block:(t + 1) * block])
+            pool.pump()
+            for j, lane in enumerate(lanes):
+                n = pool.available(lane)
+                if n:
+                    out[j].append(pool.pull(lane, n))
+        return [np.concatenate(o, axis=1) for o in out]
+
+    def build(device):
+        renderer = prepare_renderer(WAVData(48_000.0, d["hrir_audio"]),
+                                    channel_maps.STEREO, 48_000.0, block,
+                                    device=device)
+        return StreamPool(4, 48_000.0, renderer, block_size=block,
+                          device=device)
+
+    streams = [np.concatenate([x[0, :, :n_pre * block], d["extra_a"],
+                               x[0, :, n_pre * block:]], axis=1),
+               np.concatenate([x[1, :, :n_pre * block],
+                               x[1, :, n_pre * block:]], axis=1)]
+    ref = build("cpu")
+    ref_out = render(ref, [ref.attach(), ref.attach()], streams,
+                     max(s.shape[1] // block for s in streams))
+    tails = [ref_out[0][:, (n_pre + 2) * block:], ref_out[1][:, n_pre * block:]]
+    post = [x[j, :, n_pre * block:] for j in range(2)]
+    conts = {}
+    for device in ("cpu", cuda_device):
+        pool = build(device)
+        snap = load_pool_snapshot(os.path.join(fixdir, "r3_full_window_pool"),
+                                  pool)
+        assert snap["migrated_from"] == "full-window (schema 1)"
+        pool.restore(snap)
+        mk.reset_launch_count()
+        conts[str(device)] = render(pool, snap["attached"], post, n_post)
+        if device != "cpu":
+            assert mk.launch_count("mac_kmajor") == n_post
+    for j in range(2):
+        got = conts[str(cuda_device)][j]
+        assert rel_rms(got, conts["cpu"][j]) <= 1e-5
+        assert rel_rms(got, tails[j]) <= 1e-5

@@ -50,6 +50,7 @@ from airwave_tpu_torch.shell import app as tapp
 from airwave_tpu_torch.shell import serve as tserve
 from airwave_tpu_torch.shell import wire_client as twire
 from airwave_tpu_torch.utils import checkpoint as tckpt
+from _torch_sigpipe import sigpipe_ignored  # noqa: F401
 
 SR = 48_000.0
 BLOCK = 64
@@ -63,6 +64,7 @@ EQ_TEXT = {
     2: b"Preamp: 2 dB\nFilter 1: ON HSC Fc 6000 Hz Gain -3 dB Q 0.8\n",
     3: b"Preamp: -1 dB\nFilter 1: ON LSC Fc 120 Hz Gain -2.5 dB Q 0.7\n",
 }
+
 
 
 def rel_rms(y, ref) -> float:

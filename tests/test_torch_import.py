@@ -59,7 +59,10 @@ def test_port_imports_and_bakes_with_jax_blocked():
                      "graph.effect_graph", "assets.bundled",
                      "assets.hrir_library", "runtime.controller",
                      "runtime.coordinators", "shell.presentation",
-                     "tools.convert", "__main__"):
+                     "tools.convert", "runtime.feeder", "shell.settings",
+                     "assets.watcher", "tools.sofa", "tools.spatial",
+                     "tools.generate", "tools.plan_capacity",
+                     "utils.memory_planner", "__main__"):
             assert "airwave_tpu_torch." + name in names, name
 
         from airwave_tpu_torch.models.bake import bake
@@ -100,6 +103,35 @@ def test_cli_help_runs_with_jax_blocked():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "help ok" in proc.stdout
+
+
+def test_tools_help_runs_with_jax_blocked():
+    """`python -m airwave_tpu_torch.tools.{convert,spatial,generate,
+    plan_capacity} --help` run without jax, and plan_capacity plans."""
+    code = BLOCK_JAX + textwrap.dedent("""
+        import contextlib, io, json, runpy
+        for tool in ("convert", "spatial", "generate", "plan_capacity"):
+            sys.argv = [tool, "--help"]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                try:
+                    runpy.run_module("airwave_tpu_torch.tools." + tool,
+                                     run_name="__main__")
+                except SystemExit as stop:
+                    assert stop.code == 0, (tool, stop.code)
+            assert "usage:" in out.getvalue(), tool
+        from airwave_tpu_torch.tools.plan_capacity import main
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main(["--blocks-per-step", "8", "--hbm-gb", "24"]) == 0
+        assert json.loads(out.getvalue())["max_streams"] > 0
+        assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+        assert "h5py" not in sys.modules  # read_sofa_hrir imports it lazily
+        print("tools ok")
+    """)
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "tools ok" in proc.stdout
 
 
 def test_presets_and_demo_run_with_jax_blocked(tmp_path):
@@ -268,12 +300,15 @@ def _hrir_wav_and_layout():
 
 
 def test_entry_points_default_to_the_card():
-    """With no device, resolve_device, bake, prepare_renderer and StreamPool
-    ask for the card; where there is none they raise and run nothing."""
+    """With no device, resolve_device, bake, prepare_renderer, StreamPool,
+    DeviceFeeder and device_hbm_bytes ask for the card; where there is none
+    they raise and run nothing."""
     from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
     from airwave_tpu_torch.graph.renderer import prepare_renderer
     from airwave_tpu_torch.models.bake import bake
+    from airwave_tpu_torch.runtime.feeder import DeviceFeeder
     from airwave_tpu_torch.runtime.stream_pool import StreamPool
+    from airwave_tpu_torch.utils.memory_planner import device_hbm_bytes
 
     assert torch.device(DEFAULT_DEVICE).type == "cuda"
     if torch.cuda.is_available():
@@ -287,7 +322,9 @@ def test_entry_points_default_to_the_card():
                  lambda: prepare_renderer(wav, layout, 48_000.0, 64),
                  lambda: StreamPool(2, 48_000.0, renderer, block_size=64),
                  lambda: StreamPool(2, 48_000.0, block_size=64,
-                                    profiles=[(renderer, None)] * 2)):
+                                    profiles=[(renderer, None)] * 2),
+                 lambda: DeviceFeeder(lambda s, x: (s, x), None),
+                 device_hbm_bytes):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
 

@@ -35,11 +35,13 @@ from airwave_tpu_torch.shell import serve as tserve
 from airwave_tpu_torch.shell import wire_client as twire
 from airwave_tpu_torch.shell.app import restore_serve_checkpoint
 from airwave_tpu_torch.utils import checkpoint as tckpt
+from _torch_sigpipe import sigpipe_ignored  # noqa: F401
 
 SR = 48_000.0
 BLOCK = 64
 TOL = 1e-5
 _LEN = struct.Struct("<I")
+
 
 
 def rel_rms(a, ref):
@@ -493,10 +495,12 @@ def test_checkpoint_header_matches_jax_for_both_tiers(tmp_path):
 
 
 def test_checkpoint_resize_and_versioning(tmp_path):
-    """A checkpoint of another --max-streams resizes on load; another
-    schema, a schema-less file, an npz container, a carry tag that changed
-    without a schema bump and a pool of another shape each raise the
-    versioned SnapshotCompatError (tests/test_serve.py:1159,1300)."""
+    """A checkpoint of another --max-streams resizes on load; a schema-less
+    file whose arrays fit loads, as in the JAX package (tests/
+    test_serve.py:1203); another schema, the pre-half-window npz fixture, a
+    carry tag that changed without a schema bump and a pool of another
+    shape each raise the versioned SnapshotCompatError (tests/
+    test_serve.py:1159,1300)."""
     audio = bank(41)
     a = port_pool(audio, 4)
     a.attach()
@@ -515,17 +519,22 @@ def test_checkpoint_resize_and_versioning(tmp_path):
     for name, changed, match in (
             ("future", dict(extra, schema=tckpt.POOL_SNAPSHOT_SCHEMA + 1),
              r"schema 3 is incompatible.*schema 2"),
-            ("schemaless", {k: v for k, v in extra.items() if k != "schema"},
-             "predates schema versioning"),
             ("forgot_bump", dict(extra, carry=extra["carry"] + ",.overlap"),
              "carry format.*schema bump")):
         p = str(tmp_path / name)
         tckpt._write_raw(p, tree, changed)
         with pytest.raises(tckpt.SnapshotCompatError, match=match):
             tckpt.load_pool_snapshot(p, a)
+    schemaless = str(tmp_path / "schemaless")
+    tckpt._write_raw(schemaless, tree,
+                     {k: v for k, v in extra.items() if k != "schema"})
+    loaded = tckpt.load_pool_snapshot(schemaless, a)
+    assert loaded["attached"] == extra["attached"]
+    assert "migrated_from" not in loaded
     fixture = os.path.join(os.path.dirname(__file__), "fixtures",
                            "pool_snapshot_prehalfwindow.npz")
-    with pytest.raises(tckpt.SnapshotCompatError, match="npz-container"):
+    with pytest.raises(tckpt.SnapshotCompatError,
+                       match=r"schema 1.*schema 2"):
         tckpt.load_pool_snapshot(fixture, a)
     renderer2 = tprepare(TWAVData(SR, audio), tcm.STEREO, SR, 2 * BLOCK,
                          device="cpu")

@@ -25,11 +25,13 @@ from airwave_tpu_torch.shell import serve as tserve
 from airwave_tpu_torch.shell.app import build_parser, build_serve_pool, main
 from airwave_tpu_torch.shell.wire_client import render_via_server
 from airwave_tpu_torch.utils.checkpoint import checkpoint_path
+from _torch_sigpipe import sigpipe_ignored  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 48_000
 TOL = 1e-5
 PRESET = "Preamp: -3 dB\nFilter 1: ON PK Fc 100 Hz Gain 2 dB Q 1\n"
+
 
 
 def rel_rms(a, ref):
