@@ -48,46 +48,65 @@
 // one accumulator), which the port first ran as one mac_kmajor launch per
 // page with `accumulate`.
 //
-// What bounds it on this card: bytes. At the paged step's shape (n = 3,
-// K = 520, R = 32, O = 32, B = 16384) the function reads 3.27 GB of pages and
-// writes 1.09 GB, 1.30 ms at 3.35 TB/s; its 52 GFLOP of fp32 FMAs take
-// 0.78 ms at the CUDA cores' 67 TFLOP/s, so the FMAs must overlap the
-// stream almost fully. The per-page launches moved 8.7 GB (two round trips
-// of the accumulator) and kept one register load per thread and row in
-// flight. The design:
-//   - each (bin k, tile of 256 lanes) is summed over every page and row by
-//     one CTA: the sums stay in registers and out is written once, with no
-//     atomics. The CTAs are persistent (as many as fit on the card) and
-//     walk the tiles, so the ring below keeps loading across tiles and no
-//     CTA start or drain leaves the card idle;
-//   - a producer warp stages the rows into a ring of kPagesStages stages of
-//     kPagesRows rows with TMA bulk copies (cp.async.bulk, one 1 KB copy
-//     per row of the tile, completing on the stage's mbarrier with
-//     expect-tx): up to 64 KB in flight per CTA, and no consumer thread
-//     spends a register or an instruction on addresses. Consumer warps
-//     wait on a stage's "full" barrier and release it on its "empty"
-//     barrier, with no __syncthreads in the loop;
-//   - at a page's first stage the producer also copies the page's bank (by
-//     cp.async, completing through cp.async.mbarrier.arrive) into the
-//     second of two buffers, which the consumers release at the page's end.
-//     It is transposed to [R][O], so one float4 holds 4 columns of a row,
-//     read as a broadcast; shared memory grows with R but not with n;
-//   - each consumer thread holds 4 adjacent lanes x 8 columns (4 warp-
-//     uniform column groups): per row one float4 of lanes and two float4 of
-//     columns feed 32 FMAs, and a thread keeps 64 sums and partials. All 32
-//     columns in one thread needed 128 of them and ptxas spilled;
-//   - exact fp32 on the CUDA cores, no tensor cores: each page's partial sum
-//     starts at zero and runs fmaf in r order, and the partials are added to
-//     the sum in page order, (p0 + p1) + p2 as the accumulate launches
-//     computed it, so the two agree bit for bit. Rows are padded with zeros
-//     to whole stages (fmaf(0, 0, p) == p; only a -0 partial turns +0);
-//   - ragged shapes in the same kernel: rows take bulk copies when
-//     B % 4 == 0 and the pages are 16-byte aligned, else 4-byte cp.async by
-//     the producer's 32 lanes; lanes past B are never stored. An O that is
-//     a multiple of 32 takes 32 columns per pass over the pages (one pass at
-//     the steady O = 32, two at a hot-swap round's dual-bank O = 64); any
-//     other O takes 16 columns per pass (re-reading the pages), padded with
-//     zero columns.
+// What bounds it on this card. At the steady O = 32 (n = 3, K = 520, R = 32)
+// the function reads 384 B of pages and writes 128 B per (k, b) for 12 flop
+// per byte, under the CUDA cores' ridge of 67 TFLOP/s / 3.35 TB/s = 20: bytes
+// bound it (1.30 ms at B = 16384). A hot-swap round's dual bank, O = 64,
+// moves 640 B per (k, b) if it reads each page once and does 19 flop per
+// byte: bytes and FMAs both (1.63 and 1.56 ms). In practice the consumers'
+// instruction issue and shared-memory reads bound both well before HBM
+// does, so the design reads every page element once at every B, spends no
+// consumer instruction on addresses, copies or spills, and writes out once:
+//   - persistent CTAs (as many as fit) each walk their own contiguous run of
+//     work items (bin k, tile of 256 lanes), so consecutive items mostly
+//     share a bin; each item is summed over every page and row by one CTA,
+//     out is written once with no atomics, and the ring below keeps loading
+//     across items;
+//   - a producer warp fills a ring of stages of 16 rows with TMA bulk copies
+//     (cp.async.bulk, completing on the stage's mbarrier with expect-tx)
+//     whatever B and the page bases are: each row copies its 16-byte-aligned
+//     envelope, rounded out to whole 16 B, into a slot row one float4 wider
+//     than the tile, and the consumers read the row from its shift m (the
+//     row start's float index mod 4, the same for the whole warp; the
+//     shifts repeat every 4 rows). The envelope never leaves the page: where
+//     it would start before the page (a base that is not 16-byte aligned)
+//     or end past it, those few floats are copied by 4-byte cp.async, which
+//     arrives on the same barrier. Consumers wait on a stage's "full"
+//     barrier and release it on its "empty" barrier, with no __syncthreads
+//     in the loop;
+//   - the bank, transposed to [row][column] so one float4 holds 4 columns
+//     of a row (read as a broadcast): when the n pages' banks fit beside a
+//     ring of at least 2 stages, each page's stays resident for the CTA's
+//     current bin, loaded once per bin and not once per tile (reloading it
+//     per tile by 4-byte copies cost more than the FMAs at O = 32), and the
+//     ring takes the stages that are left (the three pages of a 5.1 or 7.1
+//     input, R = 96 or 128, keep 2-5); else (a long bank of many pages)
+//     each stage carries its own rows of the bank, copied two 64-byte runs
+//     an instruction, so shared memory does not grow with R;
+//   - each consumer thread keeps 4 lanes x 8 columns of partials (32
+//     registers) and its running page sums in shared memory, under the
+//     96-register budget of the ~18 warps per SM the FMA loop needs to hide
+//     its latency. Where every row is 16-byte aligned (B % 4 == 0, aligned
+//     bases) a thread's 4 lanes are adjacent: one float4 load a row and
+//     float4 stores. Else they are strided by 32 (lanes l, l + 32, l + 64,
+//     l + 96 of the warp's 128): a row's 4 scalar loads are conflict-free
+//     at every shift, and each store of a column covers 128 contiguous
+//     bytes of out whatever B % 4 is. A warp whose 128 lanes all lie past B
+//     (the last tile of a bin at B % 256 <= 128) skips the FMAs;
+//   - a pass over the pages takes C columns, C / 8 warp-uniform column
+//     groups of 2 warps: C = 32 for the steady O = 32 (two CTAs per SM,
+//     up to 4 stages); C = 64 for the dual-bank O = 64, so its pages are
+//     read once (16 consumer warps, one CTA per SM, up to 8 stages); C = 48
+//     for the three-half O = 96 (two passes, not three of 32); C = 16 (4
+//     columns a thread) for any other O (zero columns pad the last pass)
+//     and as the A/B baseline;
+//   - exact fp32 on the CUDA cores, no tensor cores: wgmma takes fp32 only
+//     as TF32, and a split-TF32 product would be another (relaxed) tier.
+//     Each page's partial sum starts at zero and runs fmaf in r order, and
+//     the partials are added to the sum in page order, (p0 + p1) + p2 as
+//     the accumulate launches computed it, so every route agrees with them
+//     bit for bit. Rows are padded with zeros to whole stages (fmaf(0, 0, p)
+//     == p; only a -0 partial turns +0).
 //
 // The single-block kernel has fixed instances for the steady O = 4, the
 // dual-bank O = 8 of a hot-swap round, the three-half O = 12 of a second
@@ -101,6 +120,7 @@
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -191,18 +211,47 @@ mac_kmajor_generic(const float* __restrict__ fdl, const float* __restrict__ h,
 
 // --- mac_kmajor_pages --------------------------------------------------------
 
-constexpr int kLaneThreads = 64;    // consumer threads along a tile's lanes
-constexpr int kColGroups = 4;       // consumer thread groups along the columns
-constexpr int kConsumerWarps = kLaneThreads * kColGroups / 32;
-constexpr int kPagesThreads = (kConsumerWarps + 1) * 32;  // + producer warp
-constexpr int kPagesTile = 4 * kLaneThreads;  // lanes per CTA, 4 per thread
-constexpr int kPagesRows = 16;                // rows per ring stage
-constexpr int kPagesStages = 4;               // ring depth
+constexpr int kLaneWarps = 2;         // consumer warps along a tile's lanes
+constexpr int kWarpLanes = 4 * 32;    // lanes of a warp, 4 per thread
+constexpr int kPagesTile = kLaneWarps * kWarpLanes;  // lanes per work item
+constexpr int kPagesRows = 16;        // rows per ring stage
+constexpr int kSlotRow = kPagesTile + 4;  // a row's envelope: one float4 more
 constexpr int kMaxPages = 32;
-constexpr int kRingFloats = kPagesStages * kPagesRows * kPagesTile;
-constexpr int kBarrierBytes = 128;            // the mbarriers, ahead of the ring
-static_assert(kLaneThreads % 32 == 0, "column groups are whole warps");
-static_assert((2 * kPagesStages + 4) * 8 <= kBarrierBytes, "barrier space");
+constexpr int kFullArrivals = 33;     // 32 producer lanes + the expect-tx
+constexpr size_t kSmPerSm = 233472;   // shared memory of an SM (228 KB)
+constexpr size_t kSmemReserved = 1024;  // the system's share per CTA
+
+// One instance of the kernel: C columns per pass over the pages, 8 of them
+// per consumer thread (4 for C = 16), so C / OCT warp-uniform column groups
+// of kLaneWarps warps each, and one producer warp. A thread keeps its 32
+// partials in registers and its running page sums in shared memory, under
+// the 96-register budget of about 18 warps per SM, with no spills; a pass
+// wider than 32 columns runs one CTA per SM (17 or 13 warps) with a deeper
+// ring, so its pages are read once. The ring holds 2 .. kMaxStages stages,
+// the most that fit beside the resident banks (launch_pages_any).
+template <int C>
+struct PagesShape {
+  static constexpr int kOct = C == 16 ? 4 : 8;
+  static constexpr int kConsumerWarps = kLaneWarps * (C / kOct);
+  static constexpr int kThreads = (kConsumerWarps + 1) * 32;
+  static constexpr bool kWide = C > 32;
+  static constexpr int kMaxStages = kWide ? 8 : 4;
+  static constexpr int kCtasPerSm = kWide ? 1 : 2;
+  static constexpr size_t kSumBytes =
+      16 * static_cast<size_t>(kOct) * kConsumerWarps * 32;
+  // Shared memory: the mbarriers (full and empty per stage, bank full and
+  // empty per page), the sums ([OCT][thread] float4), then the ring of S
+  // stages; the resident banks follow it.
+  __host__ __device__ static constexpr size_t head_bytes(int S, int n) {
+    return (8 * (2 * S + 2 * n) + 15) / 16 * 16 + kSumBytes;
+  }
+  // A ring slot: kPagesRows rows of kSlotRow floats, and when the bank is
+  // streamed, the stage's kPagesRows bank rows of C columns (padded by 4).
+  __host__ __device__ static constexpr int slot_floats(bool streamed) {
+    return kPagesRows * (kSlotRow + (streamed ? C + 4 : 0));
+  }
+};
+static_assert(kSlotRow % 4 == 0, "slot rows start 16-byte aligned");
 
 struct PagePtrs {
   const float* p[kMaxPages];
@@ -265,79 +314,127 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
       :: "r"(bar), "r"(parity) : "memory");
 }
 
-// Shared memory of one CTA: the mbarriers, the row ring and two bank
-// buffers of [Rp][OCP] floats, Rp = R rounded up to whole stages.
-__host__ __device__ inline size_t pages_smem_bytes(int R, int OCP) {
-  const int rp = (R + kPagesRows - 1) / kPagesRows * kPagesRows;
-  return kBarrierBytes + sizeof(float) * (static_cast<size_t>(kRingFloats) +
-                                          2 * static_cast<size_t>(rp) * OCP);
+// The producer's copies of one stage into a ring slot: rows r0 .. r0 + rows
+// - 1 of bin k of `page` (its `page_floats` elements), lanes b0 .. b0 + span
+// - 1, lane d of the warp taking row d: the row's 16-byte envelope by one
+// bulk copy, clipped to the page, and the floats the clipping left out by
+// cp.async (the row starts at float (start mod 16) / 4 of its slot row).
+// Rows past `rows` are zeros. Everything completes on the stage's barrier.
+__device__ __forceinline__ void load_rows(float* xs, const float* page,
+                                          size_t page_floats, int k, int r0,
+                                          int rows, int b0, int span, int R,
+                                          int B, int lane, unsigned bar) {
+  if (rows < kPagesRows) {
+    float4* d4 = reinterpret_cast<float4*>(xs);
+    for (int i = rows * (kSlotRow / 4) + lane; i < kPagesRows * (kSlotRow / 4);
+         i += 32) {
+      d4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+  // The slot's earlier writes through the generic proxy (these zeros, the
+  // cp.async floats of its last use) are ordered before the bulk copies.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // Byte addresses: the row [s, e), its envelope from e0, the bulk part
+  // [lo, hi) of it that lies inside the page.
+  uintptr_t s = 0, e = 0, e0 = 0, lo = 0, hi = 0;
+  if (lane < rows) {
+    const uintptr_t base = reinterpret_cast<uintptr_t>(page);
+    const uintptr_t first = (base + 15) & ~uintptr_t{15};
+    const uintptr_t last = (base + sizeof(float) * page_floats) & ~uintptr_t{15};
+    s = reinterpret_cast<uintptr_t>(
+        page + (static_cast<size_t>(k) * R + r0 + lane) * B + b0);
+    e = s + sizeof(float) * span;
+    e0 = s & ~uintptr_t{15};
+    const uintptr_t e1 = (e + 15) & ~uintptr_t{15};
+    lo = e0 > first ? e0 : first;
+    hi = e1 < last ? e1 : last;
+    if (lo >= hi) lo = hi = e;  // no whole 16 B inside: cp.async only
+  }
+  const unsigned bytes = static_cast<unsigned>(hi - lo);
+  const unsigned stage_bytes = __reduce_add_sync(0xffffffffu, bytes);
+  if (lane == 0) mbar_arrive_expect_tx(bar, stage_bytes);
+  __syncwarp();
+  if (lane < rows) {
+    float* dst = xs + lane * kSlotRow;
+    if (bytes) {
+      bulk_copy(dst + (lo - e0) / 4, reinterpret_cast<const void*>(lo), bytes,
+                bar);
+    }
+    for (uintptr_t a = s; a < lo && a < e; a += 4) {
+      cp_async4(dst + (a - e0) / 4, reinterpret_cast<const void*>(a), 4);
+    }
+    for (uintptr_t a = hi > s ? hi : s; a < e; a += 4) {
+      cp_async4(dst + (a - e0) / 4, reinterpret_cast<const void*>(a), 4);
+    }
+  }
+  cp_async_arrive(bar);
 }
 
-// The producer's copies of one page's bank: bank[a, k] columns o0 .. o0 +
-// OCP - 1 transposed to [r][o - o0] (a float4 holds 4 columns of one row),
-// rp rows, the pads zero; the caller then arrives on the bank's barrier.
-template <int OCP>
-__device__ __forceinline__ void load_bank(float* dst, const float* hk, int o0,
-                                          int O, int R, int rp, int lane) {
-  for (int i = lane; i < rp * OCP; i += 32) {
-    const int r = i / OCP;
-    const int o = o0 + i - r * OCP;
+// The producer's copies of all of bank[a, k] (hk, [O, R]) into dst,
+// transposed to [pass][row][column] (C columns a pass, rp rows a pass), so
+// one float4 holds 4 columns of a row. Rows past R and columns past O (up
+// to cw) are zeros. Completes through the caller's cp.async arrival.
+template <int C>
+__device__ __forceinline__ void load_bank(float* dst, const float* hk, int rp,
+                                          int cw, int O, int R, int lane) {
+  for (int i = lane; i < rp * cw; i += 32) {
+    const int r = i / cw;
+    const int o = i - r * cw;
     const bool ok = o < O && r < R;
-    cp_async4(dst + i, ok ? hk + static_cast<size_t>(o) * R + r : hk,
+    cp_async4(dst + (o / C * rp + r) * C + o % C,
+              ok ? hk + static_cast<size_t>(o) * R + r : hk, ok ? 4 : 0);
+  }
+}
+
+// The same for one stage of a streamed bank: rows r0 .. r0 + rows - 1 and
+// columns c0 .. c0 + C - 1 into dst [row][C + 4]. Lane l takes row l % 16
+// of every other column from l / 16 on, so each instruction reads two
+// 64-byte runs of the bank (by lanes along its columns it touched 32 lines),
+// and the padded rows keep its shared-memory writes at most 2-way in
+// conflict. Rows past `rows` and columns past O are zeros.
+template <int C>
+__device__ __forceinline__ void load_bank_stage(float* dst, const float* hk,
+                                                int r0, int rows, int c0,
+                                                int O, int R, int lane) {
+  static_assert(32 % kPagesRows == 0, "whole columns per instruction");
+  const int r = lane % kPagesRows;
+  for (int o = lane / kPagesRows; o < C; o += 32 / kPagesRows) {
+    const bool ok = c0 + o < O && r < rows;
+    cp_async4(dst + r * (C + 4) + o,
+              ok ? hk + static_cast<size_t>(c0 + o) * R + r0 + r : hk,
               ok ? 4 : 0);
   }
 }
 
-// The producer's copies of one stage: `rows` rows of `span` lanes from src
-// (row stride B) into a ring slot of kPagesRows rows; the slot's rows past
-// `rows` become zeros. Completes on the stage's barrier `bar`.
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int rows, int span, int B,
-                                          int rows_bulk, int lane,
-                                          unsigned bar) {
-  if (rows_bulk) {
-    // The zeros are written before the slot's later bulk copies (the async
-    // proxy) overwrite them.
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int i = rows * (kPagesTile / 4) + lane;
-         i < kPagesRows * (kPagesTile / 4); i += 32) {
-      d4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    if (lane == 0) {
-      mbar_arrive_expect_tx(bar, rows * span * 4);
-      for (int d = 0; d < rows; ++d) {
-        bulk_copy(dst + d * kPagesTile, src + static_cast<size_t>(d) * B,
-                  span * 4, bar);
-      }
-    } else {
-      mbar_arrive(bar);
-    }
-  } else {
-    for (int i = lane; i < kPagesRows * span; i += 32) {
-      const int d = i / span;
-      const int l = i - d * span;
-      const bool ok = d < rows;
-      cp_async4(dst + d * kPagesTile + l,
-                ok ? src + static_cast<size_t>(d) * B + l : src, ok ? 4 : 0);
-    }
-    cp_async_arrive(bar);
-  }
-}
-
-// A consumer's FMAs on one stage: for each row, one float4 of its 4 lanes
-// (xs) against OCT/4 float4 of its columns (hq, row stride OCP floats), in
-// row order into part[lane][column].
-template <int OCT, int OCP>
+// A consumer's FMAs on one stage: for each row d, its 4 lanes against OCT/4
+// float4 of its columns (hq, row stride HROW floats), in row order into
+// part[lane][column]. Row d of this thread's lanes starts at x[d % 4] + d *
+// kSlotRow (the rows' shifts repeat every 4 rows). kAligned: the thread's
+// lanes are adjacent, one float4; else strided by 32.
+template <int OCT, int HROW, bool kAligned>
 __device__ __forceinline__ void mac_stage(float (&part)[4][OCT],
-                                          const float4* xs, const float4* hq) {
+                                          const float* x0, const float* x1,
+                                          const float* x2, const float* x3,
+                                          const float4* hq) {
 #pragma unroll
   for (int d = 0; d < kPagesRows; ++d) {
-    const float4 x4 = xs[d * (kPagesTile / 4)];
-    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    const float* row =
+        (d % 4 == 0 ? x0 : d % 4 == 1 ? x1 : d % 4 == 2 ? x2 : x3) +
+        d * kSlotRow;
+    float x[4];
+    if (kAligned) {
+      const float4 x4 = *reinterpret_cast<const float4*>(row);
+      x[0] = x4.x;
+      x[1] = x4.y;
+      x[2] = x4.z;
+      x[3] = x4.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = row[32 * j];
+    }
 #pragma unroll
     for (int q = 0; q < OCT / 4; ++q) {
-      const float4 w4 = hq[d * (OCP / 4) + q];
+      const float4 w4 = hq[d * (HROW / 4) + q];
       const float w[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -350,139 +447,228 @@ __device__ __forceinline__ void mac_stage(float (&part)[4][OCT],
   }
 }
 
-// Persistent CTAs walk the work items (bin k, tile of kPagesTile lanes).
-// The last warp produces: for each stage (page a, rows blk * kPagesRows on)
-// it waits for the slot to be released and fills it, and at a page's first
-// stage it first copies the page's bank into the bank buffer the consumers
-// released. The consumer warps wait for a stage, multiply it and release
-// it. Each consumer thread holds 4 adjacent lanes x OCT columns: per row one
-// float4 of lanes and OCT/4 float4 of columns feed 4 * OCT FMAs. A pass over
-// the pages covers OCP = kColGroups * OCT columns (all of O = 32 or 16);
-// group cg (warp-uniform, so bank reads stay broadcasts) takes columns
-// cg * OCT onwards of the pass. Both roles count stages (it) and page banks
-// (pg) over all work items and passes: the k-th use of a ring slot or bank
-// buffer is the barriers' phase k.
-template <int OCT>
-__global__ void __launch_bounds__(kPagesThreads, 2)
+// Persistent CTAs; CTA g takes the work items [g * W / G, (g + 1) * W / G)
+// of the W = K * tiles items (bin k, tile of kPagesTile lanes), in order, so
+// its consecutive items mostly share a bin. The last warp produces: for
+// each stage (page a, rows r0 on, the pass's columns) it waits for the ring
+// slot to be released and fills it. The consumer warps wait for a stage,
+// multiply it and release it. The ring has S slots; both roles walk them in
+// turn (slot, and the parity of the slot's current use).
+//
+// The bank: kResident (the n pages' banks, all O columns, fit beside the
+// ring): page a's bank has a buffer of its own, loaded at the first item
+// of each bin (the f-th fresh bin is its barriers' phase f) and released
+// after the bin's last item; else it is streamed: each stage also carries
+// its rows of the bank, the pass's C columns.
+//
+// Consumer warp w takes lanes (w % kLaneWarps) * kWarpLanes on of the tile
+// and columns (w / kLaneWarps) * OCT on of the pass (warp-uniform, so bank
+// reads stay broadcasts). kAligned (B % 4 == 0, every page and out 16-byte
+// aligned: every row has shift 0): a thread's 4 lanes are adjacent, read
+// and stored as one float4; else they are strided by 32.
+//
+// MAC_PAGES_SPLIT, for timing only (chip_smoke.py --split; the sums are
+// wrong): 1, the consumers wait for and release every stage but do no
+// FMAs; 2, the producer copies no rows. Unset, the kernel is whole.
+#ifdef MAC_PAGES_SPLIT
+constexpr int kPagesSplit = MAC_PAGES_SPLIT;
+#else
+constexpr int kPagesSplit = 0;
+#endif
+
+template <int C, bool kAligned, bool kResident>
+__global__ void __launch_bounds__(PagesShape<C>::kThreads,
+                                  PagesShape<C>::kCtasPerSm)
 mac_kmajor_pages_kernel(const __grid_constant__ PagePtrs pages,
                         const float* __restrict__ bank,
                         float* __restrict__ out, int n, int K, int R, int B,
-                        int O, int rows_bulk, int out_vec) {
-  static_assert(OCT % 4 == 0, "whole float4 runs of columns per group");
-  constexpr int OCP = kColGroups * OCT;
-  constexpr int kSlotFloats = kPagesRows * kPagesTile;
+                        int O, int S) {
+  using Shape = PagesShape<C>;
+  constexpr int OCT = Shape::kOct;
+  constexpr int kThreadsC = Shape::kConsumerWarps * 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  const unsigned bars = smem_addr(smem);
-  const unsigned full = bars;                          // [stages]
-  const unsigned empty = bars + 8 * kPagesStages;      // [stages]
-  const unsigned bank_full = bars + 16 * kPagesStages; // [2]
-  const unsigned bank_empty = bank_full + 16;          // [2]
-  float* ring = reinterpret_cast<float*>(smem + kBarrierBytes);  // [st][row][lane]
-  float* hs = ring + kRingFloats;                                // [2][Rp][OCP]
+  const unsigned full = smem_addr(smem);           // [S]
+  const unsigned empty = full + 8 * S;             // [S]
+  const unsigned bank_full = empty + 8 * S;        // [n]
+  const unsigned bank_empty = bank_full + 8 * n;   // [n]
+  float4* sums = reinterpret_cast<float4*>(
+      smem + Shape::head_bytes(S, n) - Shape::kSumBytes);
+  float* ring = reinterpret_cast<float*>(smem + Shape::head_bytes(S, n));
+  constexpr int slot_floats = Shape::slot_floats(!kResident);
+  constexpr int kHRow = kResident ? C : C + 4;  // a bank row's floats
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int tiles = (B + kPagesTile - 1) / kPagesTile;  // tiles per bin
-  const int nblk = (R + kPagesRows - 1) / kPagesRows;
-  const int rp = nblk * kPagesRows;  // rows per page, padded
-  const int total = n * nblk;        // stages per pass
+  const int rp = (R + kPagesRows - 1) / kPagesRows * kPagesRows;
+  const int cw = (O + C - 1) / C * C;  // the columns of every pass
+  float* banks = ring + S * slot_floats;  // resident: [n][pass][rp][C]
+  const long long work = static_cast<long long>(K) * tiles;
+  const int w0 = static_cast<int>(work * blockIdx.x / gridDim.x);
+  const int w1 = static_cast<int>(work * (blockIdx.x + 1) / gridDim.x);
 
   if (tid == 0) {
-    for (int i = 0; i < kPagesStages; ++i) {
-      mbar_init(full + 8 * i, 32);  // one arrival per producer lane
-      mbar_init(empty + 8 * i, kConsumerWarps);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + 8 * i, kFullArrivals);
+      mbar_init(empty + 8 * i, Shape::kConsumerWarps);
     }
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < n; ++i) {
       mbar_init(bank_full + 8 * i, 32);
-      mbar_init(bank_empty + 8 * i, kConsumerWarps);
+      mbar_init(bank_empty + 8 * i, Shape::kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  int it = 0;
-  int pg = 0;
-  if (tid / 32 == kConsumerWarps) {  // the producer
-    for (int wi = blockIdx.x; wi < K * tiles; wi += gridDim.x) {
+  int slot = 0;           // the ring slot of the next stage
+  unsigned parity = 0;    // the parity of that slot's current use
+  bool reuse = false;     // the ring has wrapped at least once
+  unsigned fb = 0;        // fresh bins so far
+  if (tid / 32 == Shape::kConsumerWarps) {  // the producer
+    const size_t page_floats = static_cast<size_t>(K) * R * B;
+    for (int wi = w0; wi < w1; ++wi) {
       const int k = wi / tiles;
       const int b0 = (wi - k * tiles) * kPagesTile;
-      for (int o0 = 0; o0 < O; o0 += OCP) {
-        for (int s = 0; s < total; ++s, ++it) {
-          const int a = s / nblk;
-          const int blk = s - a * nblk;
-          if (blk == 0) {
-            const int buf = pg & 1;
-            if (pg >= 2) mbar_wait(bank_empty + 8 * buf, ((pg >> 1) - 1) & 1);
-            load_bank<OCP>(hs + buf * rp * OCP,
-                           bank + (static_cast<size_t>(a) * K + k) * O * R,
-                           o0, O, R, rp, lane);
-            cp_async_arrive(bank_full + 8 * buf);
-            ++pg;
+      const int span = min(kPagesTile, B - b0);
+      const bool load = kResident && (wi == w0 || (wi - 1) / tiles != k);
+      fb += load;
+      for (int o0 = 0; o0 < O; o0 += C) {
+        for (int a = 0; a < n; ++a) {
+          const float* hk = bank + (static_cast<size_t>(a) * K + k) * O * R;
+          if (load && o0 == 0) {
+            if (fb > 1) mbar_wait(bank_empty + 8 * a, fb & 1);
+            load_bank<C>(banks + static_cast<size_t>(a) * rp * cw, hk, rp,
+                         cw, O, R, lane);
+            cp_async_arrive(bank_full + 8 * a);
           }
-          const int slot = it % kPagesStages;
-          if (it >= kPagesStages) {
-            mbar_wait(empty + 8 * slot, ((it / kPagesStages) - 1) & 1);
+          for (int r0 = 0; r0 < R; r0 += kPagesRows) {
+            if (reuse) mbar_wait(empty + 8 * slot, parity ^ 1);
+            float* xs = ring + slot * slot_floats;
+            const int rows = min(kPagesRows, R - r0);
+            if (!kResident) {
+              load_bank_stage<C>(xs + kPagesRows * kSlotRow, hk, r0, rows,
+                                 o0, O, R, lane);
+            }
+            if (kPagesSplit == 2) {
+              if (lane == 0) mbar_arrive_expect_tx(full + 8 * slot, 0);
+              cp_async_arrive(full + 8 * slot);
+            } else {
+              load_rows(xs, pages.p[a], page_floats, k, r0, rows, b0, span,
+                        R, B, lane, full + 8 * slot);
+            }
+            if (++slot == S) {
+              slot = 0;
+              parity ^= 1;
+              reuse = true;
+            }
           }
-          const int r0 = blk * kPagesRows;
-          load_rows(ring + slot * kSlotFloats,
-                    pages.p[a] + (static_cast<size_t>(k) * R + r0) * B + b0,
-                    min(kPagesRows, R - r0), min(kPagesTile, B - b0), B,
-                    rows_bulk, lane, full + 8 * slot);
         }
       }
     }
     return;
   }
 
-  const int lt = tid % kLaneThreads;  // lanes b0 + 4 * lt .. + 3
-  const int cg = tid / kLaneThreads;  // column group
-  for (int wi = blockIdx.x; wi < K * tiles; wi += gridDim.x) {
+  const int cwarp = tid / 32;
+  const int l0 = (cwarp % kLaneWarps) * kWarpLanes;  // the warp's first lane
+  const int lt = l0 + (kAligned ? 4 * lane : lane);  // this thread's first
+  const int col0 = (cwarp / kLaneWarps) * OCT;       // its first column
+  for (int wi = w0; wi < w1; ++wi) {
     const int k = wi / tiles;
-    const int b = (wi - k * tiles) * kPagesTile + 4 * lt;
-    for (int o0 = 0; o0 < O; o0 += OCP) {
-      float sum[4][OCT], part[4][OCT];
+    const int b0 = (wi - k * tiles) * kPagesTile;
+    const int span = min(kPagesTile, B - b0);
+    const bool load = kResident && (wi == w0 || (wi - 1) / tiles != k);
+    const bool release =
+        kResident && (wi + 1 == w1 || (wi + 1) / tiles != k);
+    const bool active = l0 < span;  // warp-uniform
+    fb += load;
+    for (int o0 = 0; o0 < O; o0 += C) {
+      float part[4][OCT];
 #pragma unroll
       for (int o = 0; o < OCT; ++o) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sum[j][o] = part[j][o] = 0.0f;
+        for (int j = 0; j < 4; ++j) part[j][o] = 0.0f;
       }
-      for (int s = 0; s < total; ++s, ++it) {
-        const int a = s / nblk;
-        const int blk = s - a * nblk;
-        const int slot = it % kPagesStages;
-        if (blk == 0) mbar_wait(bank_full + 8 * (pg & 1), (pg >> 1) & 1);
-        mbar_wait(full + 8 * slot, (it / kPagesStages) & 1);
-        mac_stage<OCT, OCP>(
-            part, reinterpret_cast<const float4*>(ring + slot * kSlotFloats) + lt,
-            reinterpret_cast<const float4*>(
-                hs + ((pg & 1) * rp + blk * kPagesRows) * OCP + cg * OCT));
-        __syncwarp();  // the warp's reads of the stage (and bank) are done
-        if (lane == 0) mbar_arrive(empty + 8 * slot);
-        if (blk == nblk - 1) {
+      for (int a = 0; a < n; ++a) {
+        if (load && o0 == 0) mbar_wait(bank_full + 8 * a, (fb - 1) & 1);
+        for (int r0 = 0; r0 < R; r0 += kPagesRows) {
+          mbar_wait(full + 8 * slot, parity);
+          if (active && kPagesSplit != 1) {
+            const float* xs = ring + slot * slot_floats;
+            const float4* hq = reinterpret_cast<const float4*>(
+                (kResident ? banks + (a * cw + o0) * rp + r0 * C
+                           : xs + kPagesRows * kSlotRow) +
+                col0);
+            xs += lt;
+            const float *x0 = xs, *x1 = xs, *x2 = xs, *x3 = xs;
+            if (!kAligned) {
+              // Row u's shift: the float index of its first lane, mod 4.
+              const unsigned row0 =
+                  static_cast<unsigned>(
+                      reinterpret_cast<uintptr_t>(pages.p[a]) / 4) +
+                  (static_cast<unsigned>(k) * R + r0) *
+                      static_cast<unsigned>(B) +
+                  b0;
+              const unsigned b = B;
+              x0 += row0 & 3;
+              x1 += (row0 + b) & 3;
+              x2 += (row0 + 2 * b) & 3;
+              x3 += (row0 + 3 * b) & 3;
+            }
+            mac_stage<OCT, kHRow, kAligned>(part, x0, x1, x2, x3, hq);
+          }
+          __syncwarp();  // the warp's reads of the stage are done
+          if (lane == 0) mbar_arrive(empty + 8 * slot);
+          if (++slot == S) {
+            slot = 0;
+            parity ^= 1;
+          }
+        }
+        if (release && o0 + C >= O && lane == 0) {
+          mbar_arrive(bank_empty + 8 * a);  // the bin's last read of it
+        }
+        // The running sum (p0 + p1) + ... in shared memory; after the last
+        // page, part holds the finished sums.
+        if (a + 1 < n) {
 #pragma unroll
           for (int o = 0; o < OCT; ++o) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              sum[j][o] = a == 0 ? part[j][o] : sum[j][o] + part[j][o];
-              part[j][o] = 0.0f;
+            float4* sp = sums + o * kThreadsC + tid;
+            float4 v = make_float4(part[0][o], part[1][o], part[2][o],
+                                   part[3][o]);
+            if (a > 0) {
+              const float4 u = *sp;
+              v = make_float4(u.x + v.x, u.y + v.y, u.z + v.z, u.w + v.w);
             }
+            *sp = v;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) part[j][o] = 0.0f;
           }
-          if (lane == 0) mbar_arrive(bank_empty + 8 * (pg & 1));
-          ++pg;
+        } else if (a > 0) {
+#pragma unroll
+          for (int o = 0; o < OCT; ++o) {
+            const float4 u = sums[o * kThreadsC + tid];
+            part[0][o] = u.x + part[0][o];
+            part[1][o] = u.y + part[1][o];
+            part[2][o] = u.z + part[2][o];
+            part[3][o] = u.w + part[3][o];
+          }
         }
       }
 
+      if (active) {
 #pragma unroll
-      for (int o = 0; o < OCT; ++o) {
-        const int col = o0 + cg * OCT + o;
-        if (col < O && b < B) {
-          float* y = out + (static_cast<size_t>(col) * K + k) * B + b;
-          if (out_vec) {
-            *reinterpret_cast<float4*>(y) =
-                make_float4(sum[0][o], sum[1][o], sum[2][o], sum[3][o]);
-          } else {
+        for (int o = 0; o < OCT; ++o) {
+          const int col = o0 + col0 + o;
+          if (col < O) {
+            float* y = out + (static_cast<size_t>(col) * K + k) * B + b0 + lt;
+            if (kAligned) {
+              if (lt < span) {
+                *reinterpret_cast<float4*>(y) = make_float4(
+                    part[0][o], part[1][o], part[2][o], part[3][o]);
+              }
+            } else {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              if (b + j < B) y[j] = sum[j][o];
+              for (int j = 0; j < 4; ++j) {
+                if (lt + 32 * j < span) y[32 * j] = part[j][o];
+              }
             }
           }
         }
@@ -491,19 +677,21 @@ mac_kmajor_pages_kernel(const __grid_constant__ PagePtrs pages,
   }
 }
 
-template <int OCT>
+template <int C, bool kAligned, bool kResident>
 cudaError_t launch_pages(const PagePtrs& pages, const float* bank, float* out,
-                         int n, int K, int R, int B, int O, int rows_bulk,
-                         int out_vec, cudaStream_t s) {
-  const size_t smem = pages_smem_bytes(R, kColGroups * OCT);
+                         int n, int K, int R, int B, int O, int stages,
+                         size_t smem, cudaStream_t s) {
+  using Shape = PagesShape<C>;
+  auto kernel = mac_kmajor_pages_kernel<C, kAligned, kResident>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mac_kmajor_pages_kernel<OCT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  // Persistent CTAs, as many as fit on the card at once, walk the
-  // (bin, tile) work items, so a CTA's ring keeps loading across items.
+  // Persistent CTAs, as many as fit on the card at once, each walking its
+  // own run of (bin, tile) work items, so a CTA's ring keeps loading
+  // across items.
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
@@ -511,7 +699,7 @@ cudaError_t launch_pages(const PagePtrs& pages, const float* bank, float* out,
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mac_kmajor_pages_kernel<OCT>, kPagesThreads, smem);
+        &per_sm, kernel, Shape::kThreads, smem);
   }
   if (err != cudaSuccess) return err;
   const long long work =
@@ -519,17 +707,43 @@ cudaError_t launch_pages(const PagePtrs& pages, const float* bank, float* out,
   if (work > INT32_MAX) return cudaErrorInvalidValue;
   const int grid = static_cast<int>(
       std::min<long long>(work, static_cast<long long>(std::max(per_sm, 1)) * sms));
-  mac_kmajor_pages_kernel<OCT><<<grid, kPagesThreads, smem, s>>>(
-      pages, bank, out, n, K, R, B, O, rows_bulk, out_vec);
+  kernel<<<grid, Shape::kThreads, smem, s>>>(pages, bank, out, n, K, R, B, O,
+                                             stages);
   return cudaGetLastError();
 }
 
-// Columns per pass over the pages: 32 for a multiple of 32, else 16.
-// `columns` 16 or 32 forces one of the two instances (the A/B of a dispatch
-// change); 0 picks by O.
-int pages_columns(int O, int columns) {
-  if (columns != 0) return columns;
-  return O % 32 == 0 ? 32 : kColGroups * 4;
+// One launch of instance C. The n pages' banks stay resident when they fit
+// beside a ring of at least 2 stages with kCtasPerSm CTAs per SM (the ring
+// then takes the most stages that fit, up to kMaxStages: a 5.1 or 7.1
+// input's three pages at M = 8, R = 96 or 128, keep a shallower ring); else
+// they are streamed in the stages of the deepest ring that fits.
+template <int C>
+cudaError_t launch_pages_any(const PagePtrs& pages, const float* bank,
+                             float* out, int n, int K, int R, int B, int O,
+                             bool aligned, cudaStream_t s) {
+  using Shape = PagesShape<C>;
+  const size_t rp = (R + kPagesRows - 1) / kPagesRows * kPagesRows;
+  const size_t cw = (O + C - 1) / C * C;
+  const size_t budget = kSmPerSm / Shape::kCtasPerSm - kSmemReserved;
+  auto go = [&](auto resident, int stages, size_t smem) {
+    constexpr bool kResident = decltype(resident)::value;
+    return aligned ? launch_pages<C, true, kResident>(
+                         pages, bank, out, n, K, R, B, O, stages, smem, s)
+                   : launch_pages<C, false, kResident>(
+                         pages, bank, out, n, K, R, B, O, stages, smem, s);
+  };
+  for (int stages = Shape::kMaxStages; stages >= 2; --stages) {
+    const size_t smem = Shape::head_bytes(stages, n) +
+                        sizeof(float) * (stages * Shape::slot_floats(false) +
+                                         n * rp * cw);
+    if (smem <= budget) return go(std::true_type{}, stages, smem);
+  }
+  for (int stages = Shape::kMaxStages; stages >= 2; --stages) {
+    const size_t smem = Shape::head_bytes(stages, n) +
+                        sizeof(float) * stages * Shape::slot_floats(true);
+    if (smem <= budget) return go(std::false_type{}, stages, smem);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -572,38 +786,41 @@ extern "C" int airwave_mac_kmajor(const float* fdl, const float* h, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory of one mac_kmajor_pages CTA for these R and O; the
-// caller checks it against the card's opt-in limit.
-extern "C" long long airwave_mac_kmajor_pages_smem(int R, int O,
-                                                    int columns) {
-  return static_cast<long long>(pages_smem_bytes(R, pages_columns(O, columns)));
-}
-
-// pages: n (1..32) device pointers to [K, R, B]; launches on `stream` and
-// returns cudaGetLastError() as an int, as airwave_mac_kmajor does.
-// `columns` is 0 (by O), 16 or 32, as pages_columns takes it.
+// pages: n (1..32) device pointers to [K, R, B], any 4-byte-aligned bases;
+// launches on `stream` and returns cudaGetLastError() as an int, as
+// airwave_mac_kmajor does. `columns`, the columns per pass over the pages,
+// is 16, 32, 48 or 64 (the caller picks it by O).
 extern "C" int airwave_mac_kmajor_pages(const float* const* pages, int n,
                                         const float* bank, float* out, int K,
                                         int R, int B, int O, int columns,
                                         int device, void* stream) {
   if (n < 1 || n > kMaxPages) return static_cast<int>(cudaErrorInvalidValue);
-  if (columns != 0 && columns != 16 && columns != 32) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   PagePtrs p{};
-  int rows_bulk = B % 4 == 0;  // every row 16-byte aligned, whole 16 B
+  // Every row 16-byte aligned, and every float4 of out: the float4 route.
+  bool aligned = B % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   for (int a = 0; a < n; ++a) {
     p.p[a] = pages[a];
-    rows_bulk = rows_bulk && reinterpret_cast<uintptr_t>(pages[a]) % 16 == 0;
+    aligned = aligned && reinterpret_cast<uintptr_t>(pages[a]) % 16 == 0;
   }
-  const int out_vec = B % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pages_columns(O, columns) == 32) {
-    err = launch_pages<8>(p, bank, out, n, K, R, B, O, rows_bulk, out_vec, s);
-  } else {
-    err = launch_pages<4>(p, bank, out, n, K, R, B, O, rows_bulk, out_vec, s);
+  switch (columns) {
+    case 16:
+      err = launch_pages_any<16>(p, bank, out, n, K, R, B, O, aligned, s);
+      break;
+    case 32:
+      err = launch_pages_any<32>(p, bank, out, n, K, R, B, O, aligned, s);
+      break;
+    case 48:
+      err = launch_pages_any<48>(p, bank, out, n, K, R, B, O, aligned, s);
+      break;
+    case 64:
+      err = launch_pages_any<64>(p, bank, out, n, K, R, B, O, aligned, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+      break;
   }
   return static_cast<int>(err);
 }

@@ -31,9 +31,9 @@ from airwave_tpu_torch.kernels import _build
 
 SOURCE = "mac_kmajor.cu"
 _MAX_SMEM_BYTES = 48 * 1024  # h[k] staged per CTA without opt-in smem
-_MAX_OPTIN_SMEM_BYTES = 232_448  # the H100's per-CTA limit after opt-in
 _MAX_GRID_Y = 65535          # one grid row per bin
 MAX_PAGES = 32               # page pointers mac_kmajor_pages passes by value
+PAGES_COLUMNS = (16, 32, 48, 64)  # mac_kmajor_pages' columns per pass
 
 _launches = {"mac_kmajor": 0, "mac_kmajor_pages": 0}
 _launches_by_columns: Counter = Counter()  # (kernel, O) -> launches
@@ -80,8 +80,6 @@ def _library():
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.airwave_mac_kmajor_pages_smem.argtypes = [ctypes.c_int] * 3
-    lib.airwave_mac_kmajor_pages_smem.restype = ctypes.c_longlong
     lib.airwave_cuda_error_string.argtypes = [ctypes.c_int]
     lib.airwave_cuda_error_string.restype = ctypes.c_char_p
     return lib, log
@@ -178,6 +176,12 @@ def mac_kmajor(fdl: torch.Tensor, h: torch.Tensor,
     return out
 
 
+def pages_columns(O: int) -> int:
+    """The columns per pass over the pages mac_kmajor_pages takes for O by
+    default: 64, 48 or 32, the first that divides O, else 16."""
+    return next((c for c in (64, 48, 32) if O % c == 0), 16)
+
+
 def _check_pages(pages, bank, out):
     n = len(pages)
     if n == 0:
@@ -211,14 +215,17 @@ def mac_kmajor_pages(pages, bank: torch.Tensor,
                      columns: "int | None" = None) -> torch.Tensor:
     """pages n x [K, R, B], bank [n, K, O, R] -> [O, K, B], all float32:
     every page's contraction summed in page order, in one kernel launch on
-    the card. The pages stay separate tensors (no stacking copy).
+    the card, at any B and any page offset (contiguous views included). The
+    pages stay separate tensors (no stacking copy).
 
-    `columns` (16 or 32) forces the kernel instance that takes that many
-    output columns per pass over the pages; None picks 32 for an O that is
-    a multiple of 32, else 16 (the A/B baseline of the dispatch; the
-    results are bit for bit the same)."""
-    if columns not in (None, 16, 32):
-        raise ValueError(f"columns must be None, 16 or 32, got {columns}")
+    `columns` (one of PAGES_COLUMNS) forces the kernel instance that takes
+    that many output columns per pass over the pages; None takes
+    pages_columns(O): one pass at the steady O = 32 and the dual-bank
+    O = 64, two of 48 at the three-half O = 96. 16 is the A/B baseline;
+    every route gives the same bits."""
+    if columns is not None and columns not in PAGES_COLUMNS:
+        raise ValueError(f"columns must be None or one of {PAGES_COLUMNS}, "
+                         f"got {columns}")
     K, R, B, O = _check_pages(pages, bank, out)
     dev = bank.device
     if dev.type == "cpu":
@@ -233,15 +240,11 @@ def mac_kmajor_pages(pages, bank: torch.Tensor,
     if not (K > 0 and B > 0 and R > 0 and O > 0):
         raise ValueError(f"unsupported shape K={K} R={R} B={B} O={O}")
     lib, _ = _library()
-    smem = lib.airwave_mac_kmajor_pages_smem(R, O, columns or 0)
-    if smem > _MAX_OPTIN_SMEM_BYTES:
-        raise ValueError(f"R={R} O={O} needs {smem} B of shared memory per "
-                         f"CTA, over the card's {_MAX_OPTIN_SMEM_BYTES}")
     ptrs = (ctypes.c_void_p * len(pages))(*(p.data_ptr() for p in pages))
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.airwave_mac_kmajor_pages(
         ptrs, len(pages), bank.data_ptr(), out.data_ptr(), K, R, B, O,
-        columns or 0, dev.index or 0, stream,
+        columns or pages_columns(O), dev.index or 0, stream,
     )
     _check_launch(lib, code, "mac_kmajor_pages", O)
     return out

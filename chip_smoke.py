@@ -1,6 +1,15 @@
 """Drive the PyTorch/CUDA port's main paths once on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --kernels-only [--baseline LABEL=SOURCE ...] [--split]
+
+With no arguments it runs every phase below. --baseline LABEL=SOURCE (an
+earlier commit's mac_kmajor.cu, built with the same nvcc flags) holds every
+mac_kmajor_pages case of the kernel phase to that build bit for bit and
+times the two in turns (its "builds" field), and times the planner's paged
+capacity pool's device rounds with either in turns (baseline_rounds phase);
+--split also times this mac_kmajor.cu built with MAC_PAGES_SPLIT=1 (no FMAs)
+and =2 (no row copies) at each paged case; --kernels-only stops there.
 
 Phases, each printing one line before the last (its "at_s" field the
 script's elapsed seconds):
@@ -19,9 +28,10 @@ script's elapsed seconds):
      from bytes and FLOPs; the fused kernel is timed in turns with the three
      launches (three, fused, fused, three) and equals them bit for bit; the
      hot-swap rounds' dual-bank shapes (mac_kmajor at O=8, B=8192 and
-     16384; mac_kmajor_pages at O=64) are timed in turns with the routes
-     the dispatch took before it had them (the generic kernel, 16 columns
-     per pass), which they equal bit for bit; and the grouped pools'
+     16384; mac_kmajor_pages at O=64) are timed in turns with another
+     route of the same kernel, which they equal bit for bit (mac_kmajor's
+     generic kernel, the route before O=8 had its instance; the paged
+     kernel's own 16-column instance); and the grouped pools'
      per-group shapes (mac_kmajor at B=2048 with the long and the short
      bank's R, mac_kmajor_pages at B=4096 with 3 and 2 pages) at the
      steady O, the uniform all-dual fade O and the three-half fade bank's
@@ -30,7 +40,11 @@ script's elapsed seconds):
      at B=1 on the bundled 4096-tap Neutral bank (R=36, O=4) and its
      Neutral -> Room fade bank (O=8); and the planner's capacity pools'
      lane counts, no multiple of 4 (mac_kmajor at B=150,129, O=4 and 8;
-     mac_kmajor_pages at B=35,910, O=32 and 64);
+     mac_kmajor_pages at B=35,910 and its neighbours 35,909 and 35,911,
+     O=32 and 64, each timed in turns with its 16-column route, which it
+     equals bit for bit, as are the three pages of a 5.1 and a 7.1 input,
+     R=96 and 128, at B=16384, O=32 and 64); and the serving pool's 3
+     pages at its 1024 clients' width beside its 1032 lanes;
   4. bake: models.bake.bake at full width (B=16384 streams, S=2, T=512, a
      synthetic 4320-tap HRIR bank, a 10-filter EQ) over 32 blocks with
      blocks_per_step=8 and 1; the outputs are finite and non-silent, the two
@@ -186,6 +200,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
+import hashlib
 import io
 import json
 import os
@@ -198,6 +214,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -209,6 +226,7 @@ from airwave_tpu_torch.device import apply_precision_policy, precision_is_strict
 from airwave_tpu_torch.graph.renderer import (build_hrir_time_domain,
                                               prepare_renderer)
 from airwave_tpu_torch.io import wav as wavio
+from airwave_tpu_torch.kernels import _build
 from airwave_tpu_torch.kernels import mac_kmajor as mk
 from airwave_tpu_torch.models.bake import bake
 from airwave_tpu_torch.models.binaural import (BinauralChain, BinauralEngine,
@@ -308,10 +326,14 @@ MIGRATION_CONTINUED = 6     # rounds after the migrated restore
 PLANNER_PROBES = (512, 1024)  # probe batches of the calibration
 PLANNER_HBM = 24e9          # the capacity pools' device-memory budget
 # The capacity pools' lane counts on an H100 80GB at that budget (the
-# planner's recommendation moves with the calibration): lane counts that
-# are no multiple of 4, which take the kernels' 4-byte copies and scalar
-# stores, as kernel cases.
+# planner's recommendation moves with the calibration), as kernel cases:
+# lane counts that are no multiple of 4, so rows start 4, 8 or 12 bytes past
+# 16-byte alignment (mac_kmajor_pages copies each row's 16-byte envelope by
+# TMA and stores whole 128-byte runs all the same). The paged width is also
+# run at its neighbours, B % 4 = 1 and 3.
 CAPACITY_LANES = {1: 150_129, BLOCKS_PER_STEP: 35_910}
+CAPACITY_PAGED_WIDTHS = tuple(CAPACITY_LANES[BLOCKS_PER_STEP] + d
+                              for d in (-1, 0, 1))
 RENDER_FILES, RENDER_SECONDS = 16, 30
 
 
@@ -341,6 +363,49 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def load_build(source: str, defines=()):
+    """Another build of mac_kmajor_pages (--baseline, --split): the C entry
+    point airwave_mac_kmajor_pages of `source` (an earlier commit's
+    mac_kmajor.cu, or this one's with -D `defines`), built with the
+    package's nvcc flags into its build directory. Returns run(pages, bank)
+    -> out. It passes the columns the wrapper would pass; a source that
+    rejects them (an older kernel took only 0, 16 or 32) gets 0, its own
+    choice by O."""
+    flags = [*_build.NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    with open(source, "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()
+    lib = _build.BUILD_DIR / f"other-{key[:16]}.so"
+    if not lib.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_build.find_nvcc(), *flags, "-o", str(lib),
+                               source], capture_output=True, text=True,
+                              timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} {defines}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(str(lib)).airwave_mac_kmajor_pages
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def run(pages, bank):
+        n, K, O, R = bank.shape
+        B = pages[0].shape[-1]
+        out = torch.empty((O, K, B), device=bank.device)
+        ptrs = (ctypes.c_void_p * n)(*(p.data_ptr() for p in pages))
+        stream = torch.cuda.current_stream(bank.device).cuda_stream
+        for columns in (mk.pages_columns(O), 0):
+            code = fn(ptrs, n, bank.data_ptr(), out.data_ptr(), K, R, B, O,
+                      columns, bank.device.index or 0, stream)
+            if code != 1:  # cudaErrorInvalidValue: try its own choice
+                break
+        if code != 0:
+            raise RuntimeError(f"{source} {defines}: cuda error {code}")
+        return out
+
+    return run
 
 
 def device_breakdown(fn, reps: int = 3, top: int = 8):
@@ -421,29 +486,43 @@ def device_phase() -> str:
     return smi
 
 
-def build_phase() -> None:
-    """nvcc of the kernel and g++ of the assembler, started together."""
+def build_phase(others=None) -> dict:
+    """nvcc of the kernel, g++ of the assembler and nvcc of each other build
+    of mac_kmajor_pages (label -> (source, defines)), all started together.
+    Returns label -> that build's run(pages, bank)."""
+    others = others or {}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(2 + len(others)) as pool:
         kernel = pool.submit(mk.build)
         assembler = pool.submit(native.load_library)
+        runs = {label: pool.submit(load_build, *spec)
+                for label, spec in others.items()}
         log = kernel.result()
         assembler.result()
+        runs = {label: run.result() for label, run in runs.items()}
     seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in log.splitlines()
              if any(w in ln for w in ("entry function", "registers", "spill"))]
-    phase("build", seconds=seconds, ptxas=ptxas)
+    phase("build", seconds=seconds, ptxas=ptxas,
+          other_builds={k: [str(v) for v in spec]
+                        for k, spec in others.items()})
+    return runs
 
 
-def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
+def kernel_phase(rng: np.random.Generator, dev: torch.device,
+                 builds=None) -> list:
     """Each kernel against its plain version at the paths' shapes, both also
     against a float64 evaluation of the same contraction, and the one
     PyTorch call that computes the same function (library_ms). The fused
     paged kernel is also timed in turns with the sum of one mac_kmajor
     launch per page that it replaces (three launches at the headline
-    shape), and must equal that sum bit for bit."""
+    shape), and must equal that sum bit for bit. `builds` (label -> (run,
+    exact)): other builds of mac_kmajor_pages, each timed in turns with the
+    kernel at every paged case ("builds" field); an exact one must equal it
+    bit for bit."""
     Kp = upols.padded_bin_count(BLOCK)
     cases = []
+    builds = builds or {}
     # The inputs are drawn on the card: gigabytes of host draws and copies
     # took most of this phase's time.
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
@@ -476,6 +555,22 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
             raise AssertionError(f"{name}: rel-RMS {rel} > {KERNEL_TOL}")
         cases.append(case)
         torch.cuda.empty_cache()
+
+    def vs_builds(pages, bank, fused) -> dict:
+        fields = {}
+        for label, (run, exact) in builds.items():
+            def other(run=run):
+                return run(pages, bank)
+            if exact and not torch.equal(other(), fused()):
+                raise AssertionError(f"build {label} differs from the kernel "
+                                     f"at {len(pages)} pages {bank.shape}")
+            # In turns: the other build, the kernel, the kernel, the other.
+            turns = [cuda_ms(f, 20) for f in (other, fused, fused, other)]
+            fields[label] = dict(ms=(turns[0] + turns[3]) / 2,
+                                 ms_turns=[turns[0], turns[3]],
+                                 kernel_ms_turns=turns[1:3],
+                                 **({"equal": True} if exact else {}))
+        return {"builds": fields} if fields else {}
 
     # The bake, the ring pool, the serving ring pool, the render CLI's graph
     # path (one lane per input file), the planner's ring capacity pool.
@@ -524,6 +619,7 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
         if n == 3:
             measure("mac_kmajor", f"paged {shape}", per_page, *args)
         measure("mac_kmajor_pages", f"paged fused {shape}", fused, *args,
+                **vs_builds(pages, bank, fused),
                 ms=(turns[1] + turns[2]) / 2, ms_turns=turns[1:3],
                 per_page_launches_ms=(turns[0] + turns[3]) / 2,
                 per_page_launches_ms_turns=[turns[0], turns[3]],
@@ -535,43 +631,58 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
         del pages, bank, stacked
         torch.cuda.empty_cache()
 
-    # The paged serving pool, the render CLI's --throughput bake and the
-    # planner's paged capacity pool run the same 3 pages at their own lane
-    # counts.
+    # The paged serving pool and the render CLI's --throughput bake run the
+    # same 3 pages at their own lane counts (the planner's paged capacity
+    # pool too: below, in turns with the 16-column route). The serving
+    # pool's clients alone (1024 lanes, four whole 256-lane tiles a bin)
+    # show what its 8 spare lanes' ragged fifth tile costs.
     n, R, O = 3, SPEAKERS * 2 * M, M * EARS * 2
-    for B in (SERVE_LANES, RENDER_FILES, CAPACITY_LANES[BLOCKS_PER_STEP]):
+    for B in (SERVE_LANES, SERVE_CLIENTS, RENDER_FILES):
         pages = [tensor((Kp, R, B)) for _ in range(n)]
         bank = tensor((n, Kp, O, R))
         stacked = torch.stack(pages)
+
+        def fused():
+            return mk.mac_kmajor_pages(pages, bank)
+
         measure("mac_kmajor_pages", f"paged fused {n} pages K={Kp} R={R} "
-                f"O={O} B={B}", lambda: mk.mac_kmajor_pages(pages, bank),
+                f"O={O} B={B}", fused,
                 lambda: mk.mac_kmajor_pages_ref(pages, bank),
                 lambda: sum(mk.mac_kmajor_ref(p.double(), h.double())
                             for p, h in zip(pages, bank)),
                 lambda: torch.einsum("pkrb,pkor->okb", stacked, bank),
                 bound(4 * (n * Kp * R * B + bank.numel() + O * Kp * B),
-                      2 * n * Kp * R * O * B))
+                      2 * n * Kp * R * O * B),
+                **vs_builds(pages, bank, fused))
         del pages, bank, stacked
 
     # A hot-swap round's dual bank doubles the output columns: O = 8 for the
     # single block (the ring pool at 8192 lanes, the engine at 16384, the
     # capacity pool) and O = 64 for the paged round (at 16384 lanes and the
-    # capacity pool's). Each is timed in turns with the route the
-    # dispatch took before it had these shapes (the generic kernel; 16
-    # columns per pass over the pages), which it must equal bit for bit.
-    def dual(kernel, shape, new, old, args, label="dual bank"):
+    # capacity pool's widths). Each is timed in turns with another route of
+    # the same kernel, which it must equal bit for bit: for mac_kmajor the
+    # generic kernel, the route the dispatch took before O = 8 had its
+    # instance ("previous_route" fields); for mac_kmajor_pages its own
+    # 16-column instance, the same kernel taking 16 output columns a pass
+    # ("columns16" fields; older runs' "previous_route" fields held the
+    # older kernel's own 16-column route). So are the paged capacity widths
+    # at the steady O = 32, and the three pages of a 5.1 and a 7.1 input
+    # (R = 96 and 128 at M = 8) at the bake's width.
+    def dual(kernel, shape, new, old, args, label="dual bank",
+             route="previous_route", extra=None):
         equal, diff = torch.equal(new(), old()), (new() - old()).abs().max().item()
         turns = [cuda_ms(f, 20) for f in (old, new, new, old)]
         equal_plain = torch.equal(new(), args[0]())
         measure(kernel, f"{label} {shape}", new, *args,
                 ms=(turns[1] + turns[2]) / 2, ms_turns=turns[1:3],
-                previous_route_ms=(turns[0] + turns[3]) / 2,
-                previous_route_ms_turns=[turns[0], turns[3]],
-                equals_previous_route=equal,
-                max_abs_diff_previous_route=diff, equals_plain=equal_plain)
+                **{f"{route}_ms": (turns[0] + turns[3]) / 2,
+                   f"{route}_ms_turns": [turns[0], turns[3]],
+                   f"equals_{route}": equal,
+                   f"max_abs_diff_{route}": diff},
+                equals_plain=equal_plain, **(extra or {}))
         if not equal:
-            raise AssertionError(f"{shape}: the dual-bank route differs from "
-                                 f"the previous route by up to {diff}")
+            raise AssertionError(f"{label} {shape}: the route differs from "
+                                 f"the {route} route by up to {diff}")
 
     R, O = 40, 2 * EARS * 2
     for B in (POOL_LANES[1], BATCH, CAPACITY_LANES[1]):
@@ -586,20 +697,30 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
                     2 * Kp * R * O * B)))
         del fdl, h
         torch.cuda.empty_cache()
-    n, R, O = 3, SPEAKERS * 2 * M, M * 2 * EARS * 2
-    for B in (BATCH, CAPACITY_LANES[BLOCKS_PER_STEP]):
+    n, steady = 3, M * EARS * 2
+    for R, O, B in ([(SPEAKERS * 2 * M, steady, b)
+                     for b in CAPACITY_PAGED_WIDTHS]
+                    + [(SPEAKERS * 2 * M, 2 * steady, b)
+                       for b in (BATCH, *CAPACITY_PAGED_WIDTHS)]
+                    + [(speakers * 2 * M, o, BATCH) for speakers in (6, 8)
+                       for o in (steady, 2 * steady)]):
         pages = [tensor((Kp, R, B)) for _ in range(n)]
         bank = tensor((n, Kp, O, R))
         stacked = torch.stack(pages)
+
+        def fused():
+            return mk.mac_kmajor_pages(pages, bank)
+
         dual("mac_kmajor_pages", f"{n} pages K={Kp} R={R} O={O} B={B}",
-             lambda: mk.mac_kmajor_pages(pages, bank),
-             lambda: mk.mac_kmajor_pages(pages, bank, columns=16),
+             fused, lambda: mk.mac_kmajor_pages(pages, bank, columns=16),
              (lambda: mk.mac_kmajor_pages_ref(pages, bank),
               lambda: sum(mk.mac_kmajor_ref(p.double(), h.double())
                           for p, h in zip(pages, bank)),
               lambda: torch.einsum("pkrb,pkor->okb", stacked, bank),
               bound(4 * (n * Kp * R * B + bank.numel() + O * Kp * B),
-                    2 * n * Kp * R * O * B)))
+                    2 * n * Kp * R * O * B)),
+             label="dual bank" if O > steady else "paged fused",
+             route="columns16", extra=vs_builds(pages, bank, fused))
         del pages, bank, stacked
         torch.cuda.empty_cache()
 
@@ -637,16 +758,20 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device) -> list:
             pages = [tensor((Kp, R, paged_b)) for _ in range(n)]
             bank = tensor((n, Kp, O, R))
             stacked = torch.stack(pages)
+
+            def fused():
+                return mk.mac_kmajor_pages(pages, bank)
+
             measure("mac_kmajor_pages", f"grouped {h_count}-bank {n} pages "
-                    f"K={Kp} R={R} O={O} B={paged_b}",
-                    lambda: mk.mac_kmajor_pages(pages, bank),
+                    f"K={Kp} R={R} O={O} B={paged_b}", fused,
                     lambda: mk.mac_kmajor_pages_ref(pages, bank),
                     lambda: sum(mk.mac_kmajor_ref(p.double(), h.double())
                                 for p, h in zip(pages, bank)),
                     lambda: torch.einsum("pkrb,pkor->okb", stacked, bank),
                     bound(4 * (n * Kp * R * paged_b + bank.numel()
                                + O * Kp * paged_b),
-                          2 * n * Kp * R * O * paged_b))
+                          2 * n * Kp * R * O * paged_b),
+                    **vs_builds(pages, bank, fused))
             del pages, bank, stacked
     torch.cuda.empty_cache()
 
@@ -3147,17 +3272,82 @@ def planner_phase(wav, dev: torch.device, measured: dict, smi: str) -> dict:
     return launched, checked.cases()
 
 
+def baseline_rounds_phase(wav, dev: torch.device, baselines: dict,
+                          smi: str) -> None:
+    """The planner's paged capacity pool (CAPACITY_LANES[M] lanes, seeded
+    input on the card): each device round kind (memory_planner.run_round on
+    the pool's carry) in CUDA-event ms, the mean of 5 rounds a reading, in
+    turns with each --baseline build in the kernel's place in ops.upols
+    (the build, the kernel, the kernel, the build)."""
+    M = BLOCKS_PER_STEP
+    lanes = CAPACITY_LANES[M]
+    pool = make_pool(wav, lanes, M, dev, bench_eq_definition())
+    gen = torch.Generator(device=dev).manual_seed(lanes)
+    blocks = torch.randn((lanes, SPEAKERS, M, BLOCK), generator=gen,
+                         device=dev) * 0.25
+    rounds = {}
+    with torch.inference_mode():
+        for kind in memory_planner.round_kinds(pool):
+            def one_round(kind=kind):
+                pool._state, _ = memory_planner.run_round(
+                    pool, kind, state=pool._state, blocks=blocks)
+
+            for label, run in baselines.items():
+                turns = []
+                for mac in (run, upols.mac_kmajor_pages,
+                            upols.mac_kmajor_pages, run):
+                    with mock.patch.object(upols, "mac_kmajor_pages", mac):
+                        turns.append(cuda_ms(one_round, 5))
+                rounds[f"{kind} vs {label}"] = dict(
+                    ms=(turns[1] + turns[2]) / 2, ms_turns=turns[1:3],
+                    build_ms=(turns[0] + turns[3]) / 2,
+                    build_ms_turns=[turns[0], turns[3]])
+    phase("baseline_rounds", lanes=lanes, rounds=rounds, device=smi)
+    del pool, blocks
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument(
+        "--baseline", action="append", default=[], metavar="LABEL=SOURCE",
+        help="another mac_kmajor.cu (an earlier commit's) whose "
+             "mac_kmajor_pages every paged kernel case must equal bit for bit "
+             "and is timed in turns with, as are the paged capacity pool's "
+             "device rounds; may be repeated")
+    parser.add_argument(
+        "--split", action="store_true",
+        help="also time, at every paged kernel case, this mac_kmajor.cu "
+             "built with MAC_PAGES_SPLIT=1 (no FMAs) and =2 (no row copies): "
+             "which side of its pipeline bounds the case (their sums are "
+             "wrong)")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after the kernel phase (and the baseline "
+                             "rounds); print no result line")
     args = parser.parse_args()
+    others = dict(label_source.split("=", 1) for label_source in args.baseline)
+    others = {label: (source, ()) for label, source in others.items()}
+    if args.split:
+        source = str(_build.CSRC_DIR / mk.SOURCE)
+        others.update(no_fma=(source, ("MAC_PAGES_SPLIT=1",)),
+                      no_copy=(source, ("MAC_PAGES_SPLIT=2",)))
 
     t_start = time.perf_counter()
     smi = device_phase()
     dev = torch.device("cuda", 0)
-    build_phase()
+    runs = build_phase(others)
     rng = np.random.default_rng(args.seed)
-    cases = kernel_phase(rng, dev)
+    cases = kernel_phase(rng, dev, {label: (run, not others[label][1])
+                                    for label, run in runs.items()})
+    baselines = {label: runs[label] for label in runs if not others[label][1]}
+    if baselines:
+        with tempfile.TemporaryDirectory() as tmp:
+            baseline_rounds_phase(hrir_wav(args.seed, tmp), dev, baselines,
+                                  smi)
+    if args.kernels_only:
+        phase("done", seconds=time.perf_counter() - t_start)
+        return
     launches = bake_phase(rng, dev)
     peaks = {"bake": timing_phase(args.seed, dev, smi)}
     with tempfile.TemporaryDirectory() as tmp:

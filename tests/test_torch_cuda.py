@@ -78,13 +78,13 @@ def test_dual_bank_instance_equals_generic(cuda_device, K, R, B):
 
 @pytest.mark.parametrize("n,K,R,O,B", [
     (3, 520, 32, 64, 1000),   # the paged hot-swap round's dual bank (M = 8)
-    (2, 24, 12, 96, 130),     # three passes, rows by 4-byte copies
+    (2, 24, 12, 96, 130),     # two passes of 48, rows not 16-byte aligned
     (4, 16, 7, 64, 5),        # ragged R and B
 ])
 def test_pages_kernel_wide_columns_equal_narrow(cuda_device, n, K, R, O, B):
-    """O a multiple of 32 takes 32 columns per pass over the pages: bit for
-    bit what 16 columns per pass (twice the passes) gives, within 1e-6 of
-    float64, one launch."""
+    """O = 64 takes all its columns in one pass over the pages and O = 96
+    two of 48: bit for bit what 16 columns per pass (four or six passes)
+    gives, within 1e-6 of float64, one launch."""
     rng = np.random.default_rng(n + K + R + O + B)
     pages = [torch.tensor(rng.standard_normal((K, R, B), dtype=np.float32),
                           device=cuda_device) for _ in range(n)]
@@ -132,6 +132,70 @@ def test_pages_kernel_matches_per_page_launches(cuda_device, n, K, R, O, B):
         mk.mac_kmajor(page, h, out=acc, accumulate=True)
     assert torch.equal(got, acc)
     out = torch.full((O, K, B), 7.0, device=cuda_device)
+    assert mk.mac_kmajor_pages(pages, bank, out=out) is out
+    assert torch.equal(out, got)
+    exact = mk.mac_kmajor_pages_ref([p.double() for p in pages],
+                                    bank.double()).cpu().numpy()
+    assert rel_rms(got.cpu().numpy(), exact) <= 1e-6
+
+
+def _pages_at_offset(rng, n, K, R, B, offset, device):
+    """n pages [K, R, B], each a contiguous view at `offset` floats into its
+    own buffer (offset 1-3: the page base is not 16-byte aligned)."""
+    return [torch.tensor(rng.standard_normal(offset + K * R * B,
+                                             dtype=np.float32),
+                         device=device)[offset:].view(K, R, B)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("n,K,R,O,B,offset", [
+    # Lane counts B % 4 = 1, 2, 3 (the capacity pools' widths) at the
+    # steady, dual-bank and three-half O: rows 16-byte aligned in turns.
+    *[(3, 24, 32, O, B, 0) for B in (1001, 1002, 1003) for O in (32, 64, 96)],
+    (3, 24, 32, 64, 1024, 1),   # page bases 4 bytes past 16-byte alignment
+    (3, 24, 32, 32, 1030, 2),   # 8 bytes past, and B % 4 = 2
+    (1, 24, 32, 64, 515, 0),    # one page
+    (13, 16, 24, 32, 259, 3),   # 13 pages, R % 16 != 0, 12 bytes past
+    (3, 520, 32, 32, 1032, 0),  # the serve pool's width: a ragged last tile
+    (3, 24, 32, 96, 1027, 0),   # a last tile of 3 lanes, split by columns
+    (2, 8, 7, 48, 5, 1),        # rows of 5 lanes: some hold no whole 16 B
+    # Banks that stay resident beside a shallower ring: 7 stages at O = 64
+    # (one pass), 6 at O = 96 (two of 48); the three pages of a 5.1 and a
+    # 7.1 input at M = 8 (R = 96: 2 stages at O = 32, 5 at O = 64; R = 128:
+    # 2 stages at O = 32).
+    (4, 24, 40, 64, 1001, 0),
+    (4, 24, 40, 96, 1003, 2),
+    (3, 24, 96, 32, 1001, 0),
+    (3, 24, 96, 64, 1002, 1),
+    (3, 24, 128, 32, 1003, 3),
+    # Banks too large to stay resident beside 2 stages: streamed in the
+    # stages, at O = 32, 64 and 96.
+    (13, 8, 128, 32, 301, 1),
+    (13, 8, 128, 64, 1003, 0),
+    (8, 8, 128, 96, 257, 2),
+])
+def test_pages_kernel_at_any_width_and_offset(cuda_device, n, K, R, O, B,
+                                              offset):
+    """At lane counts that are no multiple of 4 and pages whose base is not
+    16-byte aligned the fused kernel takes its rows by bulk copy all the
+    same: bit for bit one mac_kmajor launch per page with accumulate=True
+    and its own 16-column route, within 1e-6 of float64, one launch, and
+    into an `out` that is itself an unaligned view."""
+    rng = np.random.default_rng(n + K + R + O + B + offset)
+    pages = _pages_at_offset(rng, n, K, R, B, offset, cuda_device)
+    bank = torch.tensor(rng.standard_normal((n, K, O, R), dtype=np.float32),
+                        device=cuda_device)
+    mk.reset_launch_count()
+    got = mk.mac_kmajor_pages(pages, bank)
+    torch.cuda.synchronize()
+    assert mk.launch_count("mac_kmajor_pages", columns=O) == 1
+    acc = mk.mac_kmajor(pages[0], bank[0])
+    for page, h in zip(pages[1:], bank[1:]):
+        mk.mac_kmajor(page, h, out=acc, accumulate=True)
+    assert torch.equal(got, acc)
+    assert torch.equal(got, mk.mac_kmajor_pages(pages, bank, columns=16))
+    out = torch.full((offset + O * K * B,), 7.0,
+                     device=cuda_device)[offset:].view(O, K, B)
     assert mk.mac_kmajor_pages(pages, bank, out=out) is out
     assert torch.equal(out, got)
     exact = mk.mac_kmajor_pages_ref([p.double() for p in pages],

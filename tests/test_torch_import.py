@@ -267,14 +267,16 @@ def _assert_smoke_refused(proc: subprocess.CompletedProcess) -> None:
     assert '"ok": true' not in proc.stdout
 
 
-def test_chip_smoke_fails_without_cuda():
+@pytest.mark.parametrize("argv", [
+    [], ["--kernels-only", "--split", "--baseline", "parent=mac_kmajor.cu"]])
+def test_chip_smoke_fails_without_cuda(argv):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: chip_smoke.py would run")
     # Run with jax blocked: reaching the CUDA check shows that all of the
     # script's imports load without jax.
-    proc = _run(BLOCK_JAX + textwrap.dedent("""
+    proc = _run(BLOCK_JAX + textwrap.dedent(f"""
         import runpy
-        sys.argv = ["chip_smoke.py"]
+        sys.argv = ["chip_smoke.py", *{argv!r}]
         runpy.run_path("chip_smoke.py", run_name="__main__")
     """))
     _assert_smoke_refused(proc)

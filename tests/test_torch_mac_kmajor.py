@@ -173,6 +173,34 @@ def test_pages_wrapper_rejects_bad_operands(case):
         mk.mac_kmajor_pages(pages, bank, **kwargs)
 
 
+@pytest.mark.parametrize("columns", [8, 24, 40, 128])
+def test_pages_wrapper_rejects_unknown_columns(columns):
+    pages = [torch.zeros((8, 6, 5)) for _ in range(2)]
+    with pytest.raises(ValueError, match="columns"):
+        mk.mac_kmajor_pages(pages, torch.zeros((2, 8, 4, 6)), columns=columns)
+
+
+@pytest.mark.parametrize("O,columns", [(4, 16), (8, 16), (16, 16), (24, 16),
+                                       (32, 32), (48, 48), (64, 64),
+                                       (96, 48), (128, 64), (40, 16)])
+def test_pages_columns_per_pass(O, columns):
+    """One pass over the pages at the steady O = 4M and the dual-bank 8M of
+    M = 8, two of 48 at the three-half 96; any other O 16 at a time."""
+    assert mk.pages_columns(O) == columns
+
+
+@pytest.mark.parametrize("columns", mk.PAGES_COLUMNS)
+def test_pages_every_route_runs_the_plain_version_on_cpu(columns):
+    rng = np.random.default_rng(columns)
+    pages = [torch.from_numpy(rng.standard_normal((8, 6, 5), dtype=np.float32))
+             for _ in range(3)]
+    bank = torch.from_numpy(rng.standard_normal((3, 8, 64, 6),
+                                                dtype=np.float32))
+    torch.testing.assert_close(
+        mk.mac_kmajor_pages(pages, bank, columns=columns),
+        mk.mac_kmajor_pages_ref(pages, bank), rtol=0, atol=0)
+
+
 def test_pages_out_form():
     rng = np.random.default_rng(5)
     pages = [torch.from_numpy(rng.standard_normal((8, 6, 5), dtype=np.float32))
