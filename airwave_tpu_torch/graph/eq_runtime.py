@@ -183,6 +183,16 @@ class EqualizerRuntime:
         """Run the control protocol; returns (eq_state', params_from,
         params_to, reset_applied: bool). Operates on the whole state it is
         handed (no lane masking)."""
+        states, params_from, params_to, reset_now = self.begin_block_shards(
+            [eq_state])
+        return states[0], params_from, params_to, reset_now
+
+    def begin_block_shards(self, eq_states: list):
+        """begin_block for a state split over shards (a sharded pool's
+        groups): the protocol runs once and each lane op it applies
+        (reset, finish, begin) applies to every part. Returns (eq_states',
+        params_from, params_to, reset_applied)."""
+        eq_states = list(eq_states)
         self._observe_published_target()
         self._flush_pending_retirement()
 
@@ -190,12 +200,12 @@ class EqualizerRuntime:
         if self._reset_requested:
             self._reset_requested = False
             reset_now = True
-            eq_state = eq_block.eq_reset(eq_state)
+            eq_states = [eq_block.eq_reset(s) for s in eq_states]
 
         # Finish a transition that completed in previous blocks.
         if (self.transition_from is not None
                 and self._samples_into_transition >= self.transition_length):
-            eq_state = self._finish_transition(eq_state)
+            eq_states = self._finish_transition(eq_states)
 
         # Start a newly-observed transition if allowed.
         if (self.pending_target is not None
@@ -203,12 +213,12 @@ class EqualizerRuntime:
                 and self._pending_retirement is None):
             pending, self.pending_target = self.pending_target, None
             if pending is not self.active:
-                eq_state = self._begin_transition(eq_state, pending)
+                eq_states = self._begin_transition(eq_states, pending)
 
         params_from = (self.transition_from.params
                        if self.transition_from is not None
                        else self.active.params)
-        return eq_state, params_from, self.active.params, reset_now
+        return eq_states, params_from, self.active.params, reset_now
 
     def after_block(self, frames: int) -> None:
         if self._samples_into_transition < _IDLE:
@@ -233,20 +243,20 @@ class EqualizerRuntime:
         elif target is not self.active:
             self.pending_target = target  # started in begin_block
 
-    def _begin_transition(self, eq_state, target: PreparedEq):
+    def _begin_transition(self, eq_states: list, target: PreparedEq) -> list:
         self.transition_from = self.active
         self.active = target
         self._samples_into_transition = 0
-        return eq_block.eq_begin_transition(eq_state)
+        return [eq_block.eq_begin_transition(s) for s in eq_states]
 
-    def _finish_transition(self, eq_state):
+    def _finish_transition(self, eq_states: list) -> list:
         outgoing = self.transition_from
         self.transition_from = None
         self._samples_into_transition = _IDLE
         self._retire(outgoing)
         # Idle the lanes' ramp counters: a lane that paused mid-ramp jumps
         # to the target now that the wall-clock ramp is over.
-        return eq_block.eq_finish_transition(eq_state)
+        return [eq_block.eq_finish_transition(s) for s in eq_states]
 
     def _retire(self, state: PreparedEq) -> None:
         if self._pending_retirement is not None:

@@ -746,6 +746,28 @@ cudaError_t launch_pages_any(const PagePtrs& pages, const float* bank,
   return cudaErrorInvalidValue;
 }
 
+// Makes `device` the thread's current device for a launch and restores the
+// caller's device when it leaves scope: a launch on another card leaves the
+// caller where it was (a pool's shard on cuda:1 must not move the
+// process's later work off cuda:0).
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    if (cudaGetDevice(&previous_) != cudaSuccess) previous_ = -1;
+    status_ = previous_ == device ? cudaSuccess : cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    if (previous_ >= 0 && status_ == cudaSuccess) cudaSetDevice(previous_);
+  }
+  DeviceScope(const DeviceScope&) = delete;
+  DeviceScope& operator=(const DeviceScope&) = delete;
+  cudaError_t status() const { return status_; }
+
+ private:
+  int previous_ = -1;
+  cudaError_t status_ = cudaSuccess;
+};
+
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) and returns
@@ -756,8 +778,8 @@ cudaError_t launch_pages_any(const PagePtrs& pages, const float* bank,
 extern "C" int airwave_mac_kmajor(const float* fdl, const float* h, float* out,
                                   int K, int R, int B, int O, int accumulate,
                                   int generic, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   const dim3 grid((B + kThreads - 1) / kThreads, K);
   const size_t smem = static_cast<size_t>(O) * R * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -795,8 +817,9 @@ extern "C" int airwave_mac_kmajor_pages(const float* const* pages, int n,
                                         int R, int B, int O, int columns,
                                         int device, void* stream) {
   if (n < 1 || n > kMaxPages) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
+  cudaError_t err = cudaSuccess;
   PagePtrs p{};
   // Every row 16-byte aligned, and every float4 of out: the float4 route.
   bool aligned = B % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;

@@ -243,10 +243,13 @@ def single_block_bank(params: ConvParams, k_padded: int) -> torch.Tensor:
 
 def _rotated_operand(bank: torch.Tensor, write_pos: int) -> torch.Tensor:
     """Filter operand of the block at cursor w: slot j multiplies the block
-    from (w - j) blocks ago, G[(w - j) % P2] = Gflip2[(P2 - 1 - w) + j]."""
+    from (w - j) blocks ago, G[(w - j) % P2] = Gflip2[(P2 - 1 - w) + j].
+    Contiguous, as the kernel takes it: with one speaker the reshape of the
+    slice is a strided view, not a copy."""
     Kp, O, S, P, C = bank.shape
     P2 = P // 2
-    return bank.narrow(3, P2 - 1 - write_pos, P2).reshape(Kp, O, S * P2 * C)
+    return bank.narrow(3, P2 - 1 - write_pos, P2).reshape(
+        Kp, O, S * P2 * C).contiguous()
 
 
 def paged_bank(params: ConvParams, lookahead: int,

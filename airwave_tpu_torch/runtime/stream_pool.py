@@ -74,8 +74,20 @@ Deliberate differences from the JAX pool:
   - Self-crossfade banks of groups that are not swapping are built once
     per bank, not in every fade round.
 
-Not ported yet: the device mesh (`mesh=`), which raises
-NotImplementedError naming its ROADMAP item.
+Device meshes (`mesh=`, parallel/mesh.Mesh, 1-D "streams"): the lane
+space splits into stream shards as the JAX pool's NamedSharding does, each
+group's lanes independently, so unit (group g, shard s) holds the group's
+lanes [s*q/n, (s+1)*q/n) of its q on shard s's device (devices may repeat:
+virtual shards). A round harvests each shard's rows into its slice of the
+pinned upload, runs each shard's chain (_chain, or _pool_round_grouped
+over its G units) on its device and, on a card, its own CUDA stream,
+downloads into its slice of the pinned download, and records one event
+per shard. Params and banks are copied once per distinct device. No
+tensor crosses shards in a round: every unit of a group steps every round
+(the JAX pool's one SPMD step), so a group's ring cursor and the lanes'
+debt stay shared. Snapshots gather each group's carry in lane order, so
+a sharded pool's snapshot is the unsharded pool's format and restores into
+either package's pool, and the other way round.
 """
 
 from __future__ import annotations
@@ -96,12 +108,13 @@ from airwave_tpu_torch.kernels import mac_kmajor
 from airwave_tpu_torch.models.binaural import ChainOperands
 from airwave_tpu_torch.native import RaggedAssembler
 from airwave_tpu_torch.ops import eq_block, upols
+from airwave_tpu_torch.parallel.mesh import (STREAMS, Replicas, ShardStreams,
+                                             cat_lanes, lane_axes,
+                                             process_index, take_lanes)
 
 RING_VARIANTS = ("ring", "ring_all", "ring_id")
 PAGED_VARIANTS = ("paged", "paged_all", "paged_id")
 EARS = 2  # the pool renders binaural stereo
-
-_ROADMAP_MESH = "multi-GPU pools (ROADMAP Queue 1 item 17)"
 
 
 class PoolState(NamedTuple):
@@ -349,26 +362,29 @@ def _pool_round_grouped(conv_params, eq_from, eq_to, state, blocks, idx,
 
 class _HostSlot:
     """Host staging buffers for one round's upload or download: pinned on a
-    card, so their copies run asynchronously, with the CUDA event recorded
-    behind the last copy that used them. wait() returns once that copy has
-    completed; on the CPU copies are synchronous and there is no event.
-    `tensors` and their numpy views `arrays` follow `specs`, a sequence of
-    (shape, dtype)."""
+    card, so their copies run asynchronously, with a CUDA event per shard
+    recorded behind the last copy of that shard's rows. wait() returns once
+    every shard's copy has completed; on the CPU copies are synchronous and
+    there are no events. `tensors` and their numpy views `arrays` follow
+    `specs`, a sequence of (shape, dtype)."""
 
-    def __init__(self, device: torch.device, *specs) -> None:
-        pinned = device.type == "cuda"
+    def __init__(self, devices, *specs) -> None:
+        pinned = any(d.type == "cuda" for d in devices)
         self.tensors = [torch.empty(shape, dtype=dtype, pin_memory=pinned)
                         for shape, dtype in specs]
         self.arrays = [t.numpy() for t in self.tensors]
-        self.event = torch.cuda.Event() if pinned else None
+        self.events = [torch.cuda.Event() if d.type == "cuda" else None
+                       for d in devices]
 
-    def record(self) -> None:
-        if self.event is not None:
-            self.event.record()
+    def record(self, shard: int = 0) -> None:
+        """Record shard's event on the current stream (its own in a round)."""
+        if self.events[shard] is not None:
+            self.events[shard].record()
 
     def wait(self) -> None:
-        if self.event is not None:
-            self.event.synchronize()
+        for event in self.events:
+            if event is not None:
+                event.synchronize()
 
 
 class _Bank:
@@ -408,11 +424,18 @@ class StreamPool:
         mesh=None,
         blocks_per_step: int = 1,
         profiles=None,
-        device: "torch.device | str" = DEFAULT_DEVICE,
+        device: "torch.device | str | None" = None,
     ) -> None:
         """A pool of `max_streams` lanes on `device` (the card by default;
         pass device="cpu" for the CPU). The renderers' conv params are
         moved to the device.
+
+        `mesh`: a 1-D parallel.mesh.Mesh with axis name "streams" whose
+        devices this process holds (one pool per process). The lane state
+        shards over it (module docstring); each group's lane count must
+        divide by the mesh size. The pool's own device (EQ machines,
+        active banks) is the mesh's first, and `device`, if given, must
+        name it.
 
         `blocks_per_step=M > 1` is the throughput tier (module docstring):
         a lane advances only when M full blocks of its input exist, so
@@ -422,9 +445,7 @@ class StreamPool:
         `profiles`: a sequence of PoolProfile (or (renderer, eq) pairs),
         mutually exclusive with renderer/eq_definition, makes a grouped
         multi-tenant pool of len(profiles) groups; max_streams must divide
-        by it. `mesh` is not ported yet and raises NotImplementedError."""
-        if mesh is not None:
-            raise NotImplementedError(f"{_ROADMAP_MESH} is not ported yet")
+        by it."""
         if profiles is not None:
             if renderer is not None or eq_definition is not None:
                 raise ValueError("pass either renderer/eq_definition or "
@@ -437,7 +458,9 @@ class StreamPool:
             if renderer is None:
                 raise TypeError("renderer is required (or pass profiles=)")
             profiles = [PoolProfile(renderer, eq_definition)]
-        self.device = resolve_device(device)
+        shard_devices = self._mesh_devices(mesh, device)
+        self.mesh = mesh
+        self.device = shard_devices[0]
         apply_precision_policy()
         self.max_streams = int(max_streams)
         self.sample_rate = float(sample_rate)
@@ -452,6 +475,12 @@ class StreamPool:
             raise ValueError(f"max_streams ({self.max_streams}) must divide "
                              f"by the profile-group count ({self.groups})")
         self.group_size = self.max_streams // self.groups
+        if self.group_size % len(shard_devices):
+            raise ValueError(
+                f"per-group lane count ({self.group_size}) must divide by the "
+                f"mesh size ({len(shard_devices)}): each group's lane state "
+                f"shards independently")
+        self._init_shards(shard_devices)
         self.renderers = [p.renderer for p in profiles]
         first = self.renderers[0]
         for g, r in enumerate(self.renderers):
@@ -499,10 +528,9 @@ class StreamPool:
         # masked device op per group at the next round
         # (_flush_attach_resets).
         self._reset_pending = np.zeros(self.max_streams, bool)
-        self._state = self._fresh_state()
+        self._fresh_carry()
         self._attached: Dict[int, bool] = {}
         self._attached_mask = np.zeros(self.max_streams, bool)
-        self._identity_idx = np.arange(self.max_streams, dtype=np.int32)
         q = self.group_size
         self._free_by_group = [list(range((g + 1) * q - 1, g * q - 1, -1))
                                for g in range(self.groups)]
@@ -515,18 +543,19 @@ class StreamPool:
         # in order and re-flush on pull. Serialized use never fills it.
         self._pending_out: Dict[int, deque] = {}
         frames = self.step_frames
-        # Each upload slot: the harvested rows, their lanes, and a fade
-        # round's lane mask and old halves (staged copies: the host updates
-        # _xfade_pending right after the round is queued).
+        # Each upload slot: the harvested rows, their shard-local lanes, and
+        # a fade round's lane mask and old halves in shard order (staged
+        # copies: the host updates _xfade_pending right after the round is
+        # queued). Shard s's rows and lanes follow shard s-1's.
         self._uploads = [
-            _HostSlot(self.device,
+            _HostSlot(shard_devices,
                       ((self.max_streams, speakers, frames), torch.float32),
                       ((self.max_streams,), torch.int64),
                       ((self.max_streams,), torch.bool),
                       ((self.max_streams,), torch.int64))
             for _ in range(2)]
         self._downloads = [
-            _HostSlot(self.device,
+            _HostSlot(shard_devices,
                       ((self.max_streams, EARS, frames), torch.float32))
             for _ in range(2)]
         self._turn = 0
@@ -536,6 +565,45 @@ class StreamPool:
         self.debt_rolls = 0
         self.fade_rounds = 0
         self.variant_rounds: Counter = Counter()
+
+    @staticmethod
+    def _mesh_devices(mesh, device) -> list:
+        """The shard devices: the mesh's (after the JAX pool's checks), or
+        the one `device` (the card by default)."""
+        if mesh is None:
+            return [resolve_device(DEFAULT_DEVICE if device is None
+                                   else device)]
+        if tuple(mesh.axis_names) != (STREAMS,):
+            raise ValueError("pool mesh must be 1-D with axis name 'streams'")
+        if (np.asarray(mesh.process_index) != process_index()).any():
+            raise ValueError("a pool's mesh must hold this process's devices "
+                             "only: serve one pool per process")
+        devices = [resolve_device(d) for d in mesh.devices.ravel()]
+        if device is not None and resolve_device(device) != devices[0]:
+            raise ValueError(f"device {device} is not the mesh's first device "
+                             f"{devices[0]}")
+        return devices
+
+    def _init_shards(self, devices: list) -> None:
+        """Lane layout of the stream shards. Unit u = g*n + s (group g,
+        shard s) holds lanes [u*U, (u+1)*U), U = q/n; shard s runs its G
+        units as a grouped pool of G*U local lanes, unit (g, s)'s lanes at
+        [g*U, (g+1)*U). `_shard_order` lists the lanes shard by shard in
+        that local order; `_local_lane` and `_shard_of_lane` invert it."""
+        n = len(devices)
+        self.shard_count = n
+        self._shards = ShardStreams(devices, own_streams=n > 1)
+        self._replicas = Replicas()
+        self._unit_lanes = U = self.group_size // n
+        unit = np.arange(self.max_streams) // U
+        self._shard_of_lane = unit % n
+        self._shard_order = np.argsort(self._shard_of_lane, kind="stable")
+        local = self.groups * U
+        self._local_lane = np.empty(self.max_streams, np.int64)
+        self._local_lane[self._shard_order] = np.arange(self.max_streams) % local
+
+    def _unit_device(self, u: int) -> torch.device:
+        return self._shards.devices[u % self.shard_count]
 
     def _new_eq_runtime(self) -> EqualizerRuntime:
         return EqualizerRuntime(self.sample_rate, self.block_size,
@@ -629,38 +697,84 @@ class StreamPool:
     @property
     def _state(self) -> PoolState:
         """The carry: bare ConvState/EqState on a one-profile pool, G-tuples
-        of them on a grouped pool (the JAX pool's structure)."""
-        return PoolState(self._pack(self._conv), self._pack(self._eq))
+        of them on a grouped pool (the JAX pool's structure). On a sharded
+        pool each group's carry gathered in lane order onto the pool's
+        device (a copy); assigning it splits it over the shards. An
+        unsharded pool's carry is read and assigned as it lies, so neither
+        direction copies the whole carry."""
+        if self.shard_count == 1:
+            return self._shard_state(0)
+        return self._gathered(self.device)
 
     @_state.setter
     def _state(self, state: PoolState) -> None:
-        if _grouped(state.conv):
-            self._conv, self._eq = list(state.conv), list(state.eq)
-        else:
-            self._conv, self._eq = [state.conv], [state.eq]
+        convs = state.conv if _grouped(state.conv) else (state.conv,)
+        eqs = state.eq if _grouped(state.eq) else (state.eq,)
+        n, U = self.shard_count, self._unit_lanes
+        if n == 1:
+            self._conv, self._eq = list(convs), list(eqs)
+            return
+        self._conv, self._eq = [], []
+        for conv, eq in zip(convs, eqs):
+            for s, dev in enumerate(self._shards.devices):
+                self._conv.append(take_lanes(conv, lane_axes(conv), s * U, U,
+                                             dev))
+                self._eq.append(take_lanes(eq, lane_axes(eq), s * U, U, dev))
+
+    def _units(self, shard: int) -> range:
+        """The units (one per group) of a shard, in group order."""
+        return range(shard, self.groups * self.shard_count, self.shard_count)
+
+    def _shard_state(self, shard: int) -> PoolState:
+        """Shard `shard`'s carry as its round takes it (the whole carry of
+        an unsharded pool)."""
+        units = self._units(shard)
+        return PoolState(self._pack(self._conv[u] for u in units),
+                         self._pack(self._eq[u] for u in units))
+
+    def _gathered(self, device) -> PoolState:
+        """Each group's carry, its shards concatenated in lane order, as
+        new tensors on `device`."""
+        n = self.shard_count
+        convs, eqs = [], []
+        for g in range(self.groups):
+            units = range(g * n, (g + 1) * n)
+            for out, parts in ((convs, self._conv), (eqs, self._eq)):
+                pieces = [parts[u] for u in units]
+                out.append(cat_lanes(pieces, lane_axes(pieces[0]), device))
+        return PoolState(self._pack(convs), self._pack(eqs))
 
     @torch.inference_mode()
-    def _fresh_group_conv(self, g: int):
-        """A zeroed conv carry for one group's lanes at its carry's
-        partition count."""
+    def _fresh_unit_conv(self, u: int):
+        """A zeroed conv carry for one unit's lanes at its group's carry
+        partition count, on its shard's device."""
+        g = u // self.shard_count
         S, P = self.renderer.num_speakers, self._bank_partitions[g]
+        dev, U = self._unit_device(u), self._unit_lanes
         if self._paged:
             return upols.make_conv_state_paged(
-                self.group_size, S, P, self.block_size, self.blocks_per_step,
-                self.device)
-        return upols.make_conv_state(self.group_size, S, P, self.block_size,
-                                     self.device)
+                U, S, P, self.block_size, self.blocks_per_step, dev)
+        return upols.make_conv_state(U, S, P, self.block_size, dev)
 
-    def _fresh_group_eq(self) -> eq_block.EqState:
-        return eq_block.make_eq_state(self.group_size, EARS,
-                                      self.config.eq_state_dim, self.device)
+    def _fresh_unit_eq(self, u: int) -> eq_block.EqState:
+        return eq_block.make_eq_state(self._unit_lanes, EARS,
+                                      self.config.eq_state_dim,
+                                      self._unit_device(u))
 
     @torch.inference_mode()
-    def _fresh_state(self) -> PoolState:
-        """A zeroed carry at each group's partition count."""
-        return PoolState(
-            self._pack(self._fresh_group_conv(g) for g in range(self.groups)),
-            self._pack(self._fresh_group_eq() for _ in range(self.groups)))
+    def _fresh_carry(self) -> None:
+        """Zero every unit's carry."""
+        units = range(self.groups * self.shard_count)
+        self._conv = [self._fresh_unit_conv(u) for u in units]
+        self._eq = [self._fresh_unit_eq(u) for u in units]
+
+    @torch.inference_mode()
+    def _fresh_state(self, shard: int = 0) -> PoolState:
+        """A zeroed carry of one shard at each group's partition count (the
+        whole carry of an unsharded pool)."""
+        units = self._units(shard)
+        return PoolState(self._pack(self._fresh_unit_conv(u) for u in units),
+                         self._pack(self._fresh_unit_eq(u) for u in units))
 
     def _operands(self, eq_to: eq_block.EqParams,
                   group: int = 0) -> ChainOperands:
@@ -743,24 +857,26 @@ class StreamPool:
     @torch.inference_mode()
     def _flush_attach_resets(self) -> None:
         """Zero the carry rows of every lane attached since the last flush,
-        as one masked device op per group that has such lanes."""
+        as one masked device op per unit (group, or group shard) that has
+        such lanes."""
         if not self._reset_pending.any():
             return
         reset = upols.conv_reset_paged if self._paged else upols.conv_reset
-        for g in range(self.groups):
-            seg = self._reset_pending[self._segment(g)]
+        U = self._unit_lanes
+        for u in range(len(self._conv)):
+            seg = self._reset_pending[u * U:(u + 1) * U]
             if not seg.any():
                 continue
             # COPY the mask: torch.from_numpy aliases the numpy buffer,
             # which is cleared right below.
-            m = torch.from_numpy(seg.copy()).to(self.device)
-            eq = eq_block.eq_reset(self._eq[g], m)
+            m = torch.from_numpy(seg.copy()).to(self._unit_device(u))
+            eq = eq_block.eq_reset(self._eq[u], m)
             # A fresh lane hears the ACTIVE target directly: idle its
             # counter so an in-flight ramp blends it at weight 1.0 on the
             # 'to' cascade.
-            self._eq[g] = eq._replace(counter=eq.counter.masked_fill(
+            self._eq[u] = eq._replace(counter=eq.counter.masked_fill(
                 m, eq_block.COUNTER_IDLE))
-            self._conv[g] = reset(self._conv[g], m)
+            self._conv[u] = reset(self._conv[u], m)
         self._reset_pending[:] = False
 
     # --- control -----------------------------------------------------------
@@ -849,11 +965,10 @@ class StreamPool:
         self._bank_partitions[g] = renderer.partition_count
         self._clear_xfade(g)
         self._rebuild_conv_params(g)
-        if same_shape:
-            reset = upols.conv_reset_paged if self._paged else upols.conv_reset
-            self._conv[g] = reset(self._conv[g])
-        else:
-            self._conv[g] = self._fresh_group_conv(g)
+        reset = upols.conv_reset_paged if self._paged else upols.conv_reset
+        for u in range(g * self.shard_count, (g + 1) * self.shard_count):
+            self._conv[u] = (reset(self._conv[u]) if same_shape
+                             else self._fresh_unit_conv(u))
         self._debt[self._segment(g)] = 0
         return False
 
@@ -915,9 +1030,15 @@ class StreamPool:
         no host readback), for a caller that must not hold serving while
         gigabytes come back: copy under its lock, fetch outside it."""
         self._flush_attach_resets()  # a checkpoint never carries garbage
+        if materialize and self.shard_count == 1:
+            # One shard: fetched as it lies, with no gather on its device.
+            state = _map_carry(_to_host, self._state)
+        else:  # gathered in lane order: new tensors, on the host or device
+            state = _map_carry(lambda t: t.numpy() if materialize else t,
+                               self._gathered("cpu" if materialize
+                                              else self.device))
         snap = {
-            "state": _map_carry(_to_host if materialize else torch.clone,
-                                self._state),
+            "state": state,
             "debt": self._debt.copy(),
             "attached": sorted(self._attached),
             "eq_runtime": self.eq_runtime.snapshot(),
@@ -945,8 +1066,9 @@ class StreamPool:
             return torch.empty(shape, dtype=t.dtype, device="meta")
 
         convs = self._pack(_map_conv(lambda t: like(t, -1), c)
-                           for c in self._conv)
-        eqs = self._pack(_map_eq(lambda t: like(t, 0), e) for e in self._eq)
+                           for c in self._conv[::self.shard_count])
+        eqs = self._pack(_map_eq(lambda t: like(t, 0), e)
+                         for e in self._eq[::self.shard_count])
         return {
             "state": PoolState(convs, eqs),
             "debt": torch.empty((lanes,), dtype=torch.int64, device="meta"),
@@ -1013,8 +1135,8 @@ class StreamPool:
         if groups != self.groups:
             raise ValueError(f"snapshot has {groups} profile groups, pool "
                              f"has {self.groups}")
-        want = [(n, tuple(t.shape), t.dtype)
-                for n, t in _carry_leaves(self._state)]
+        want = [(n, tuple(t.shape), t.dtype) for n, t in _carry_leaves(
+            self.state_like(self.max_streams)["state"])]
         try:
             state = _map_carry(self._restored_leaf, snap["state"])
         except (AttributeError, TypeError) as err:
@@ -1140,20 +1262,18 @@ class StreamPool:
     def prewarm(self, include_hotswap: bool = False) -> None:
         """Build the kernel and load the cuBLAS paths before traffic: each
         step variant runs once (both EQ modes when the EQ is on) on a
-        throwaway state, and one lane roll per group. include_hotswap=True
-        also runs each variant of a hot-swap round on the groups'
-        self-crossfades (a fade bank's shapes are those of any later
-        same-carry swap; a grouped fade round runs every group dual). The
-        pool's own state, cursors, debt, fades and EQ machines are
+        throwaway state of every shard, and one lane roll per unit.
+        include_hotswap=True also runs each variant of a hot-swap round on
+        the groups' self-crossfades (a fade bank's shapes are those of any
+        later same-carry swap; a grouped fade round runs every group dual).
+        The pool's own state, cursors, debt, fades and EQ machines are
         untouched."""
         if self.device.type == "cuda":
             mac_kmajor.build()
         p = self._pack(rt.active.params for rt in self.eq_runtimes)
-        B, S = self.max_streams, self.renderer.num_speakers
-        shape = ((B, S, self.blocks_per_step, self.block_size) if self._paged
-                 else (B, S, self.block_size))
-        blocks = torch.zeros(shape, device=self.device)
-        idx = torch.arange(B, device=self.device)
+        L, S = self.groups * self._unit_lanes, self.renderer.num_speakers
+        shape = ((L, S, self.blocks_per_step, self.block_size) if self._paged
+                 else (L, S, self.block_size))
         variants = PAGED_VARIANTS if self._paged else RING_VARIANTS
         groups = range(self.groups)
         rounds = [(self._conv_params,
@@ -1165,36 +1285,51 @@ class StreamPool:
             rounds.append((self._pack(f[0] for f in fades),
                            self._pack(f[1] for f in fades),
                            torch.zeros(self.step_frames, device=self.device),
-                           torch.zeros(B, dtype=torch.bool,
+                           torch.zeros(L, dtype=torch.bool,
                                        device=self.device)))
-        for crossfading in ((False, True) if self._eq_enabled else (False,)):
-            for variant in variants:
-                for params, operands, ramp, mask in rounds:
-                    pool_step_body(params, p, p, self._fresh_state(), blocks,
-                                   idx, self.eq_runtime.transition_length,
-                                   self._eq_enabled, crossfading, variant,
-                                   operands, ramp, mask)
         roll = (upols.conv_roll_lanes_paged if self._paged
                 else upols.conv_roll_lanes)
-        for g in groups:
-            roll(self._fresh_group_conv(g), idx[:1], idx[:1])
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with self._shards.round():
+            for s, dev in enumerate(self._shards.devices):
+                with self._shards.shard(s):
+                    blocks = torch.zeros(shape, device=dev)
+                    idx = torch.arange(L, device=dev)
+                    p_s = self._replicas.on(p, dev)
+                    for crossfading in ((False, True) if self._eq_enabled
+                                        else (False,)):
+                        for variant in variants:
+                            for args in rounds:
+                                params, operands, ramp, mask = \
+                                    self._replicas.on(args, dev)
+                                pool_step_body(
+                                    params, p_s, p_s, self._fresh_state(s),
+                                    blocks, idx,
+                                    self.eq_runtime.transition_length,
+                                    self._eq_enabled, crossfading, variant,
+                                    operands, ramp, mask)
+                    for u in self._units(s):
+                        roll(self._fresh_unit_conv(u), idx[:1], idx[:1])
+        for dev in set(self._shards.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
-    def _begin_eq_round(self, eq_states: list):
-        """Run every group's EQ control protocol for one round; returns
-        (eq_states', params_from, params_to, crossfading) with per-group
-        lists and one crossfading flag for the round (a group not mid-ramp
-        blends from == to, which its lanes' clipped counters make exact)."""
+    def _begin_eq_round(self):
+        """Run every group's EQ control protocol for one round on its
+        units' states; returns (eq_states' per unit, params_from and
+        params_to per group, crossfading), one crossfading flag for the
+        round (a group not mid-ramp blends from == to, which its lanes'
+        clipped counters make exact)."""
         # The pool is its own control thread: drain the retirement handoff
         # every round, or the single-slot backpressure wedges the third
         # and every later retarget.
+        n = self.shard_count
         states, froms, tos = [], [], []
         crossfading = False
-        for rt, eq_state in zip(self.eq_runtimes, eq_states):
+        for g, rt in enumerate(self.eq_runtimes):
             rt.drain_retired_states()
-            eq_state, p_from, p_to, _ = rt.begin_block(eq_state)
-            states.append(eq_state)
+            units, p_from, p_to, _ = rt.begin_block_shards(
+                self._eq[g * n:(g + 1) * n])
+            states += units
             froms.append(p_from)
             tos.append(p_to)
             crossfading = (crossfading or rt.is_transitioning
@@ -1202,29 +1337,29 @@ class StreamPool:
         return states, froms, tos, crossfading
 
     def _fade_round(self, slot: _HostSlot):
-        """(params, operands, mask, src) of a hot-swap round: each fading
+        """(params, operands, with_src) of a hot-swap round: each fading
         group's fade bank, the cached self-crossfade of every other group
-        (one round shape for any pattern of concurrent swaps), the lanes
-        that blend and, when some group's fade bank has more than one old
-        half, each lane's old half (staged copies: the host changes the
-        arrays right after the round is queued)."""
+        (one round shape for any pattern of concurrent swaps), and whether
+        some group's fade bank has more than one old half. The lanes that
+        blend, and then each lane's old half, are staged in `slot` in
+        shard order (copies: the host changes the arrays right after the
+        round is queued)."""
         banks = [(f.params, f.operands) if f is not None
                  else self._self_fade(g)
                  for g, f in ((g, self._fades.get(g))
                               for g in range(self.groups))]
-        slot.arrays[2][:] = self._xfade_pending
-        mask = slot.tensors[2].to(self.device, non_blocking=True)
-        src = None
-        if any(len(f.olds) > 1 for f in self._fades.values()):
+        slot.arrays[2][:] = self._xfade_pending[self._shard_order]
+        with_src = any(len(f.olds) > 1 for f in self._fades.values())
+        if with_src:
             # Half 0 for the lanes of self-crossfading groups, whose
             # _xfade_src may index an earlier, larger fade bank.
-            slot.arrays[3][:] = 0
+            src = np.zeros(self.max_streams, np.int64)
             for g in self._fades:
                 seg = self._segment(g)
-                slot.arrays[3][seg] = self._xfade_src[seg]
-            src = slot.tensors[3].to(self.device, non_blocking=True)
+                src[seg] = self._xfade_src[seg]
+            slot.arrays[3][:] = src[self._shard_order]
         return (self._pack(b[0] for b in banks),
-                self._pack(b[1] for b in banks), mask, src)
+                self._pack(b[1] for b in banks), with_src)
 
     @torch.inference_mode()
     def pump(self, max_rounds: int = 64, on_deliver=None) -> int:
@@ -1236,7 +1371,9 @@ class StreamPool:
         output is delivered after round r+1 has been dispatched, so its
         copy to the host overlaps the next round's work. The harvest gating
         counts the one in-flight undelivered step against the free space,
-        so backpressure is the same as with immediate delivery.
+        so backpressure is the same as with immediate delivery. On a
+        sharded pool every shard runs in every round, on its device and
+        stream, from and into its slice of the staging buffers.
 
         On a failure the pool rebuilds a fresh state (blocks harvested for
         in-flight rounds are lost and read as underflow zeros), counts it
@@ -1244,7 +1381,7 @@ class StreamPool:
         rounds = 0
         pending = None  # (indices, host slot) awaiting delivery
         inflight = np.zeros(self.max_streams, bool)
-        M, S = self.blocks_per_step, self.renderer.num_speakers
+        M = self.blocks_per_step
         step_frames = self.step_frames
         try:
             while rounds < max_rounds and self.assembler.ready_count() > 0:
@@ -1257,44 +1394,43 @@ class StreamPool:
                 down = self._downloads[self._turn]
                 self._turn ^= 1
                 up.wait()  # its last upload has left the buffers
-                indices, _ = self.assembler.harvest_allowed(
-                    self.max_streams, allow, frames=step_frames,
-                    out=up.arrays[0])
+                indices, counts = self._harvest(allow, up)
                 k = len(indices)
                 if k == 0:
                     break
                 self._roll_rejoining(indices)
-                up.arrays[1][:k] = indices
-                blocks, idx = (t[:k].to(self.device, non_blocking=True)
-                               for t in up.tensors[:2])
-                if M > 1:
-                    # [k, S, M*T] -> [k, S, M, T]: ring pops are frame-major
-                    # per channel, so the view is free.
-                    blocks = blocks.view(k, S, M, self.block_size)
-                eq_states, p_from, p_to, crossfading = self._begin_eq_round(
-                    self._eq)
+                up.arrays[1][:k] = self._local_lane[indices]
+                eq_states, p_from, p_to, crossfading = self._begin_eq_round()
                 # A hot-swap round if any harvested lane still owes its
                 # fade: the fade banks run, pending lanes blend old -> new
                 # and the others take the new half.
                 fading = bool(self._fades) and bool(
                     self._xfade_pending[indices].any())
-                ramp = mask = src = None
+                with_src = False
                 if fading:
-                    conv_params, operands, mask, src = self._fade_round(up)
-                    ramp = self._xfade_ramp
+                    conv_params, operands, with_src = self._fade_round(up)
                 else:
                     conv_params = self._conv_params
                     operands = self._pack(self._operands(p, g)
                                           for g, p in enumerate(p_to))
-                up.record()
                 variant = self._variant(indices)
-                state, y_rows = pool_step_body(
-                    conv_params, self._pack(p_from), self._pack(p_to),
-                    PoolState(self._pack(self._conv), self._pack(eq_states)),
-                    blocks, idx, self.eq_runtime.transition_length,
-                    self._eq_enabled, crossfading, variant, operands, ramp,
-                    mask, src)
-                self._state = state
+                args = (conv_params, self._pack(p_from), self._pack(p_to),
+                        operands, self._xfade_ramp if fading else None)
+                starts = np.concatenate([[0], np.cumsum(counts)])
+                with self._shards.round():
+                    outs = [self._shard_round(s, up, starts, eq_states, args,
+                                              crossfading, variant, fading,
+                                              with_src)
+                            for s in range(self.shard_count)]
+                    down.wait()
+                    for s, y_rows in enumerate(outs):
+                        with self._shards.shard(s):
+                            if M > 1:  # [k, M, E, T] -> [k, E, M*T]
+                                y_rows = y_rows.transpose(1, 2).reshape(
+                                    -1, EARS, step_frames)
+                            down.tensors[0][starts[s]:starts[s + 1]].copy_(
+                                y_rows, non_blocking=True)
+                            down.record(s)
                 if fading:
                     self.fade_rounds += 1
                     self._xfade_pending[indices] = False
@@ -1307,12 +1443,6 @@ class StreamPool:
                 self._debt[self._attached_mask] += 1
                 self._debt[indices] = 0
 
-                if M > 1:  # [k, M, E, T] -> [k, E, M*T] (channel planes)
-                    y_rows = y_rows.transpose(1, 2).reshape(k, EARS,
-                                                            step_frames)
-                down.wait()
-                down.tensors[0][:k].copy_(y_rows, non_blocking=True)
-                down.record()
                 if pending is not None:
                     self._deliver(*pending)
                     inflight[pending[0]] = False
@@ -1333,7 +1463,7 @@ class StreamPool:
             # The carry may be half-updated in place: rebuild fresh
             # per-stream state (the reference's recovery is likewise a
             # fresh pipeline); the pool stays usable for the next round.
-            self._state = self._fresh_state()
+            self._fresh_carry()
             self._debt[:] = 0
             self._reset_pending[:] = False  # the fresh state is already zero
             self._clear_xfade()  # a zeroed history has nothing to blend
@@ -1341,20 +1471,73 @@ class StreamPool:
             raise
         return rounds
 
+    def _harvest(self, allow: np.ndarray, slot: _HostSlot):
+        """Pop one step from every allowed stream that has one buffered,
+        into slot's rows shard by shard (shard s's after shard s-1's, each
+        in ascending lane order). Returns (lanes in that order, rows per
+        shard)."""
+        frames = self.step_frames
+        parts, off = [], 0
+        for s in range(self.shard_count):
+            idx, _ = self.assembler.harvest_allowed(
+                self.max_streams - off, allow & (self._shard_of_lane == s),
+                frames=frames, out=slot.arrays[0][off:])
+            parts.append(idx)
+            off += len(idx)
+        return np.concatenate(parts), [len(p) for p in parts]
+
+    def _shard_round(self, s: int, up: _HostSlot, starts: np.ndarray,
+                     eq_states: list, args: tuple, crossfading: bool,
+                     variant: str, fading: bool, with_src: bool):
+        """Upload shard s's rows (its slice of `up`) and run its units' chain
+        on its device and stream; stores its carry and returns its output
+        rows."""
+        dev = self._shards.devices[s]
+        conv_params, p_from, p_to, operands, ramp = self._replicas.on(args, dev)
+        L = self.groups * self._unit_lanes
+        rows = slice(int(starts[s]), int(starts[s + 1]))
+        with self._shards.shard(s):
+            blocks, idx = (t[rows].to(dev, non_blocking=True)
+                           for t in up.tensors[:2])
+            if self._paged:
+                # [k, S, M*T] -> [k, S, M, T]: ring pops are frame-major per
+                # channel, so the view is free.
+                blocks = blocks.view(blocks.shape[0], blocks.shape[1],
+                                     self.blocks_per_step, self.block_size)
+            mask = src = None
+            if fading:
+                lanes = slice(s * L, (s + 1) * L)
+                mask = up.tensors[2][lanes].to(dev, non_blocking=True)
+                if with_src:
+                    src = up.tensors[3][lanes].to(dev, non_blocking=True)
+            up.record(s)
+            units = self._units(s)
+            state, y_rows = pool_step_body(
+                conv_params, p_from, p_to,
+                PoolState(self._pack(self._conv[u] for u in units),
+                          self._pack(eq_states[u] for u in units)),
+                blocks, idx, self.eq_runtime.transition_length,
+                self._eq_enabled, crossfading, variant, operands, ramp, mask,
+                src)
+        grouped = _grouped(state.conv)
+        for i, u in enumerate(units):
+            self._conv[u] = state.conv[i] if grouped else state.conv
+            self._eq[u] = state.eq[i] if grouped else state.eq
+        return y_rows
+
     def _variant(self, indices: np.ndarray) -> str:
         k = len(indices)
         tier = "paged" if self._paged else "ring"
         if k != len(self._attached):
             return tier
-        if k == self.max_streams and np.array_equal(indices,
-                                                    self._identity_idx):
+        if k == self.max_streams:  # every lane (the indices are distinct)
             return f"{tier}_id"
         return f"{tier}_all"
 
     def _roll_rejoining(self, indices: np.ndarray) -> None:
         """Re-align the harvested lanes that owe alignment debt (modulo
         their group's cycle): exactly those lanes, in place on their
-        group's carry."""
+        unit's carry."""
         shift = self._debt[indices] % self._lane_cycles[indices]
         rejoin = shift != 0
         if not rejoin.any():
@@ -1362,12 +1545,13 @@ class StreamPool:
         lanes, shifts = indices[rejoin].astype(np.int64), shift[rejoin]
         roll = (upols.conv_roll_lanes_paged if self._paged
                 else upols.conv_roll_lanes)
-        of_group = lanes // self.group_size
-        for g in np.unique(of_group):
-            sel = of_group == g
-            local = torch.from_numpy(lanes[sel] - g * self.group_size)
-            roll(self._conv[g], local.to(self.device),
-                 torch.from_numpy(shifts[sel]).to(self.device))
+        U = self._unit_lanes
+        of_unit = lanes // U
+        for u in np.unique(of_unit):
+            sel = of_unit == u
+            dev = self._unit_device(u)
+            roll(self._conv[u], torch.from_numpy(lanes[sel] - u * U).to(dev),
+                 torch.from_numpy(shifts[sel]).to(dev))
         self.debt_rolls += 1
 
     def _deliver(self, indices: np.ndarray, slot: _HostSlot) -> None:

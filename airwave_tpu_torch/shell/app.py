@@ -16,8 +16,8 @@ output, on the card by default:
 console script). `--device` names the torch device (default cuda:0) and
 `--cpu` means `--device cpu`; nothing falls back to the CPU when the card
 is missing (`presets` takes them too, for the HRIR library's renderers).
-Multi-GPU pools (`serve --mesh-devices`, ROADMAP Queue 1 item 17) are not
-ported yet: that flag exits with a message naming the item.
+`serve --mesh-devices N` shards the pool's lanes over the first N cards
+(with `--cpu`, over N virtual shards of the CPU).
 
 Two deliberate differences from the JAX CLI: restore_serve_checkpoint
 moves aside ANY unreadable checkpoint (truncated, empty leaves, bad header)
@@ -37,9 +37,6 @@ import time
 from typing import List, Optional
 
 import numpy as np
-
-_ROADMAP_MESH = "multi-GPU pools (ROADMAP Queue 1 item 17)"
-
 
 def _default_data_dir() -> str:
     return os.environ.get(
@@ -342,9 +339,6 @@ def build_serve_pool(args):
     from airwave_tpu_torch.io import wav as wav_io
     from airwave_tpu_torch.runtime.stream_pool import PoolProfile, StreamPool
 
-    if getattr(args, "mesh_devices", 0):
-        raise SystemExit(f"serve --mesh-devices needs {_ROADMAP_MESH}, which "
-                         f"the PyTorch port does not have yet")
     specs = getattr(args, "profile", None) or []
     if specs and (args.hrir or args.eq):
         raise SystemExit("pass either --hrir/--eq or --profile, not both")
@@ -354,6 +348,7 @@ def build_serve_pool(args):
               "7.1.4": cm.ATMOS_7_1_4}[args.layout]
     blocks_per_step = getattr(args, "blocks_per_step", 1) or 1
     device = _device(args)
+    mesh = serve_mesh(args, device)
 
     def prepare(path: str):
         return prepare_renderer(wav_io.load(path), layout, args.sample_rate,
@@ -376,7 +371,8 @@ def build_serve_pool(args):
         max_streams=args.max_streams,
         sample_rate=args.sample_rate,
         blocks_per_step=blocks_per_step,
-        device=device,
+        device=None if mesh else device,
+        mesh=mesh,
         **kwargs,
     )
     # Load every round's kernels and cuBLAS paths before accepting traffic,
@@ -384,6 +380,31 @@ def build_serve_pool(args):
     # crossfades by default.
     pool.prewarm(include_hotswap=True)
     return pool, layout
+
+
+def serve_mesh(args, device: str):
+    """The serve pool's streams mesh for --mesh-devices N (None without the
+    flag): cuda:0 ... cuda:N-1, or with --cpu N virtual shards of the CPU,
+    with the JAX CLI's two errors."""
+    n = getattr(args, "mesh_devices", 0) or 0
+    if not n:
+        return None
+    import torch
+
+    from airwave_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.device(device).type == "cpu":
+        devices = ["cpu"] * n
+    else:
+        visible = torch.cuda.device_count()
+        if visible < n:
+            raise SystemExit(f"--mesh-devices {n}: only {visible} devices "
+                             f"visible")
+        devices = [f"cuda:{i}" for i in range(n)]
+    if args.max_streams % n:
+        raise SystemExit(f"--max-streams {args.max_streams} must divide by "
+                         f"--mesh-devices {n}")
+    return make_mesh(devices)
 
 
 def restore_serve_checkpoint(ckpt: Optional[str], pool):
@@ -472,7 +493,7 @@ def cmd_serve(args) -> int:
                           "max_streams": args.max_streams,
                           "layout": layout.name,
                           "device": str(pool.device),
-                          "mesh_devices": 1,
+                          "mesh_devices": getattr(args, "mesh_devices", 0) or 1,
                           "blocks_per_step": pool.blocks_per_step,
                           "profile_groups": pool.groups,
                           "restored_checkpoint": resumed,
@@ -619,9 +640,10 @@ def build_parser() -> argparse.ArgumentParser:
                        default="stereo")
     serve.add_argument("--max-streams", type=int, default=64)
     serve.add_argument("--mesh-devices", type=int, default=0,
-                       help="shard the pool over this many devices: not "
-                            "ported yet (ROADMAP Queue 1 item 17); 0 = one "
-                            "device")
+                       help="shard the pool's lanes over this many devices "
+                            "(cuda:0 ... cuda:N-1; with --cpu, N virtual "
+                            "shards of the CPU); --max-streams must divide "
+                            "by N; 0 = one device")
     serve.add_argument("--blocks-per-step", type=int, default=1,
                        help="throughput tier: render M blocks per lane per "
                             "round on the paged lookahead path (+up to M "

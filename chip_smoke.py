@@ -44,7 +44,13 @@ script's elapsed seconds):
      O=32 and 64, each timed in turns with its 16-column route, which it
      equals bit for bit, as are the three pages of a 5.1 and a 7.1 input,
      R=96 and 128, at B=16384, O=32 and 64); and the serving pool's 3
-     pages at its 1024 clients' width beside its 1032 lanes;
+     pages at its 1024 clients' width beside its 1032 lanes; and the mesh
+     phase's per-shard widths (mac_kmajor at B=2048, O=4 and 8, B=1024
+     with R=40 and 20, a 7.1.4 speaker shard, R=40 at B=4096, and a
+     stereo speaker shard of the two gloo processes, R=20 at B=4096;
+     mac_kmajor_pages at B=4096, O=32 and 64); the B=1 and B=16 rows also
+     give the kernel's device time from torch.profiler
+     (profiled_device_ms) beside their CUDA-event time;
   4. bake: models.bake.bake at full width (B=16384 streams, S=2, T=512, a
      synthetic 4320-tap HRIR bank, a 10-filter EQ) over 32 blocks with
      blocks_per_step=8 and 1; the outputs are finite and non-silent, the two
@@ -184,13 +190,34 @@ script's elapsed seconds):
      airwave_tpu_torch.tools.plan_capacity --blocks-per-step 8 --calibrate
      --probe-batch 512 --hbm-gb 24` as a process (calibrated, per-lane
      bytes within 5% of the in-process probe's);
- 25. path_checks: every MAC launch of the migration phase, and a re-run of
-     the planner's probe rounds (their lanes and the 8-lane warm-up) and
-     capacity rounds on seeded input, held against the kernel's plain
-     version on the same operands (rel-RMS at most 1e-6), one case per
-     kernel and shape: the widths only these paths give (the capacity
-     pools' lane counts, which need not be a multiple of 4, the probes'
-     and the fixtures' 4-lane pools);
+ 25. mesh (parallel.mesh, parallel.multihost, StreamPool(mesh=) on 4
+     virtual shards of cuda:0, distinct cards where more are visible; each
+     line gives `cards` and `shards`): the sharded paged bake at B=16384,
+     M=8 with the EQ against the unsharded chain (rel-RMS at most 1e-6),
+     4 sampled lanes against float64, one 8-block step of each in
+     CUDA-event time in turns; the ring (8192) and paged (16384) pools
+     over 4 shards and a 4-group ring pool over 2 on pool_phase's data
+     through ragged rounds, an EQ retarget and a hot-swap fade, every
+     delivered lane within 1e-6 of the unsharded pool, one MAC launch per
+     shard and group a round, host and device ms of a saturated round of
+     each in turns, a snapshot restored into the unsharded pool (its
+     snapshot equal bit for bit, its output within 1e-6) and into the
+     sharded pool (bit for bit the uninterrupted rounds); the 7.1.4
+     speaker-sharded step (8 speakers, a 2 x 4 mesh, B=8192) against
+     chain_step_fn within 1e-5; tests/_torch_multihost_worker.py as two
+     gloo processes on cuda:0 at B=8192, T=512 and the 4320-tap bank (2
+     shards of 2048 lanes each; speaker shards of 4096), every MAC launch
+     of theirs held against its plain version in the process, the union of
+     their rows within 1e-5 of one process; `serve --mesh-devices 1`
+     answering a client, and one card more than are visible refused with
+     the JAX CLI's error;
+ 26. path_checks: every MAC launch of the migration and mesh phases, and a
+     re-run of the planner's probe rounds (their lanes and the 8-lane
+     warm-up) and capacity rounds on seeded input, held against the
+     kernel's plain version on the same operands (rel-RMS at most 1e-6),
+     one case per kernel and shape: the widths only these paths give (the
+     capacity pools' lane counts, which need not be a multiple of 4, the
+     probes' and the fixtures' 4-lane pools, the shards' widths);
 then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Needs no network; imports no jax.
@@ -234,6 +261,7 @@ from airwave_tpu_torch.models.binaural import (BinauralChain, BinauralEngine,
                                                make_chain_operands)
 from airwave_tpu_torch.ops import biquad_design as bd
 from airwave_tpu_torch.ops import eq_block, upols
+from airwave_tpu_torch.parallel import mesh as pmesh
 from airwave_tpu_torch.runtime.feeder import DeviceFeeder
 from airwave_tpu_torch.runtime.stream_pool import (PoolProfile, PoolState,
                                                    StreamPool, pool_step_body)
@@ -335,6 +363,18 @@ CAPACITY_LANES = {1: 150_129, BLOCKS_PER_STEP: 35_910}
 CAPACITY_PAGED_WIDTHS = tuple(CAPACITY_LANES[BLOCKS_PER_STEP] + d
                               for d in (-1, 0, 1))
 RENDER_FILES, RENDER_SECONDS = 16, 30
+# The mesh phase: virtual shards of cuda:0 (distinct cards where visible).
+MESH_SHARDS = 4             # the bake's and the pools' stream shards
+MESH_GROUPED_SHARDS = 2     # the grouped ring pool's (GROUPS groups)
+MESH_BAKE_STEPS = BAKE_BLOCKS // BLOCKS_PER_STEP
+MESH_POOL_ROUNDS = {1: 8, BLOCKS_PER_STEP: 3}   # ragged rounds per tier
+MESH_TIMED_STEPS = 5        # CUDA-event reps of one sharded or plain step
+MESH_TOL = 1e-6             # rel-RMS, sharded against unsharded
+SPEAKER_MESH = (2, 4)       # (streams, speakers) of the 7.1.4 step
+SPEAKER_LANES = 8192
+SPEAKER_STEPS = 3
+MULTIHOST_LANES = 8192      # the two gloo processes' global batch
+MESH_SERVE_FRAMES = 4 * BLOCK + 77
 
 
 _T0 = time.perf_counter()
@@ -437,6 +477,26 @@ def device_breakdown(fn, reps: int = 3, top: int = 8):
             [[name, t] for t, name in ops[:top]])
 
 
+def kernel_device_ms(fn, reps: int = 50) -> float:
+    """Device time per call of the CUDA kernels fn() launches, from
+    torch.profiler: the kernel bodies alone, without the host's launch
+    time that CUDA events around back-to-back calls include."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    # A trace that caught no kernel is no measurement (not a zero).
+    return total / 1e3 / reps if total else "not measured"
+
+
 def bench_eq_definition(scale: float = 1.0) -> bd.EqualizerDefinition:
     """bench.py:_finish_build's 10-filter EQ, its gains times `scale`."""
     kinds = (bd.FilterType.PEAKING, bd.FilterType.LOW_SHELF,
@@ -531,7 +591,7 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
         return torch.randn(shape, generator=gen, device=dev)
 
     def measure(kernel, name, kern, plain, exact_fn, library, bnd, ms=None,
-                **extra):
+                profiled=False, **extra):
         got, ref = kern().double(), plain().double()
         exact = exact_fn()
         diff = got - ref
@@ -550,6 +610,8 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
                     ms=cuda_ms(kern, 20) if ms is None else ms,
                     plain_ms=cuda_ms(plain, 20),
                     library_ms=cuda_ms(library, 20), **bnd, **extra)
+        if profiled:  # a launch-sized case: is it the host or the body?
+            case["profiled_device_ms"] = kernel_device_ms(kern)
         phase("kernel", **case)
         if not rel <= KERNEL_TOL:
             raise AssertionError(f"{name}: rel-RMS {rel} > {KERNEL_TOL}")
@@ -583,7 +645,7 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
                 lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
                 lambda: torch.einsum("krb,kor->okb", fdl, h),
                 bound(4 * (fdl.numel() + h.numel() + 4 * Kp * B),
-                      2 * Kp * 40 * 4 * B))
+                      2 * Kp * 40 * 4 * B), profiled=B <= RENDER_FILES)
         del fdl, h
 
     # Pages R = S*2*M, O = M*E*2 at M = 8: the headline's 3 pages at S = 2,
@@ -653,7 +715,7 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
                 lambda: torch.einsum("pkrb,pkor->okb", stacked, bank),
                 bound(4 * (n * Kp * R * B + bank.numel() + O * Kp * B),
                       2 * n * Kp * R * O * B),
-                **vs_builds(pages, bank, fused))
+                profiled=B <= RENDER_FILES, **vs_builds(pages, bank, fused))
         del pages, bank, stacked
 
     # A hot-swap round's dual bank doubles the output columns: O = 8 for the
@@ -792,8 +854,50 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
                 lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
                 lambda: torch.einsum("krb,kor->okb", fdl, h),
                 bound(4 * (fdl.numel() + h.numel() + O * Kp),
-                      2 * Kp * R * O), bank="bundled 4096-tap")
+                      2 * Kp * R * O), profiled=True, bank="bundled 4096-tap")
         del fdl, h
+
+    # The mesh phase's per-shard widths: the ring pool's MESH_SHARDS shards
+    # (steady and fade O), the grouped ring pool's units (GROUPS groups
+    # over MESH_GROUPED_SHARDS shards; the long and the short bank), a 7.1.4
+    # speaker shard (2 of 8 speakers, P2 = 10: R = 40, at the lanes of one
+    # of SPEAKER_MESH[0] stream shards), the multihost processes' stereo
+    # speaker shard (1 of 2 speakers, R = 20, at the lanes of one of their
+    # 2 rows; their stream shards are the ring shard's width), and the
+    # paged bake's and pool's shards (3 pages, steady and fade O).
+    shard_b = POOL_LANES[1] // MESH_SHARDS
+    unit_b = POOL_LANES[1] // GROUPS // MESH_GROUPED_SHARDS
+    for R, O, B, what in ((40, 4, shard_b, "ring shard"),
+                          (40, 8, shard_b, "ring shard dual bank"),
+                          (40, 4, unit_b, "grouped ring unit"),
+                          (20, 4, unit_b, "grouped ring unit"),
+                          (40, 4, SPEAKER_LANES // SPEAKER_MESH[0],
+                           "7.1.4 speaker shard"),
+                          (20, 4, MULTIHOST_LANES // 2,
+                           "multihost speaker shard")):
+        fdl, h = tensor((Kp, R, B)), tensor((Kp, O, R))
+        measure("mac_kmajor", f"mesh {what} K={Kp} R={R} O={O} B={B}",
+                lambda: mk.mac_kmajor(fdl, h), lambda: mk.mac_kmajor_ref(fdl, h),
+                lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
+                lambda: torch.einsum("krb,kor->okb", fdl, h),
+                bound(4 * (fdl.numel() + h.numel() + O * Kp * B),
+                      2 * Kp * R * O * B))
+        del fdl, h
+    n, R, B = 3, SPEAKERS * 2 * M, POOL_LANES[M] // MESH_SHARDS
+    for O in (M * EARS * 2, 2 * M * EARS * 2):
+        pages = [tensor((Kp, R, B)) for _ in range(n)]
+        bank = tensor((n, Kp, O, R))
+        stacked = torch.stack(pages)
+        measure("mac_kmajor_pages", f"mesh paged shard {n} pages K={Kp} R={R} "
+                f"O={O} B={B}", lambda: mk.mac_kmajor_pages(pages, bank),
+                lambda: mk.mac_kmajor_pages_ref(pages, bank),
+                lambda: sum(mk.mac_kmajor_ref(p.double(), h.double())
+                            for p, h in zip(pages, bank)),
+                lambda: torch.einsum("pkrb,pkor->okb", stacked, bank),
+                bound(4 * (n * Kp * R * B + bank.numel() + O * Kp * B),
+                      2 * n * Kp * R * O * B))
+        del pages, bank, stacked
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -3307,6 +3411,581 @@ def baseline_rounds_phase(wav, dev: torch.device, baselines: dict,
     torch.cuda.empty_cache()
 
 
+# --- mesh: the stream-sharded chains and pools on virtual shards ------------
+
+
+def mesh_devices(n: int) -> list:
+    """n shard devices: the visible cards in turn, so on one card n virtual
+    shards of cuda:0 (each its own carry, launches and CUDA stream)."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def mesh_fields(devices) -> dict:
+    return dict(cards=len({d.index for d in devices}), shards=len(devices))
+
+
+def totals(launches: dict) -> dict:
+    """{kernel: launches} of a launches_now() reading."""
+    return {name: launches[name]["total"] for name in KERNELS}
+
+
+def snapshot_arrays(snap: dict) -> list:
+    """Every array of a pool snapshot's carry and debt, in a fixed order."""
+    leaves = []
+    pmesh.tree_map(lambda t: leaves.append(np.asarray(t)), snap["state"])
+    return leaves + [np.asarray(snap["debt"])]
+
+
+def mesh_bake_part(rng: np.random.Generator, dev: torch.device,
+                   smi: str) -> dict:
+    """The sharded paged bake at the headline width (B=16384, M=8, 3 pages,
+    the 10-filter EQ folded) over MESH_SHARDS shards, against the unsharded
+    chain on the same device-resident input, sampled lanes against float64,
+    and one 8-block step of each in CUDA-event time, in turns."""
+    M, B, N = BLOCKS_PER_STEP, BATCH, MESH_BAKE_STEPS
+    devices = mesh_devices(MESH_SHARDS)
+    hrir = (rng.standard_normal((SPEAKERS, EARS, HRIR_TAPS)) * 0.05).astype(
+        np.float32)
+    hrir[:, :, 0] += 0.8
+    preamp, coeffs = bench_eq()
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+    lanes = sorted(int(b) for b in rng.choice(B, 4, replace=False))
+    with torch.inference_mode():
+        x = torch.randn((N, B, SPEAKERS, M, BLOCK), generator=gen,
+                        device=dev) * 0.25
+        conv = upols.make_conv_params(hrir, BLOCK, pad_to_pow2=False,
+                                      lookahead=M, device=dev)
+        eq = eq_block.make_eq_params(coeffs, preamp, BLOCK, device=dev)
+
+        def fresh():
+            return ChainState(
+                conv=upols.make_conv_state_paged(
+                    B, SPEAKERS, conv.partition_count, BLOCK, M, dev),
+                eq=eq_block.make_eq_state(B, device=dev))
+
+        mesh = pmesh.make_mesh(devices)
+        run = pmesh.stream_sharded_bake_multi(
+            mesh, conv.partition_count // M, eq_enabled=True)
+        mk.reset_launch_count()
+        with CheckedMacs("mesh_bake") as checked:
+            sharded, ys = run(conv, eq, eq, fresh(), x)
+            torch.cuda.synchronize()
+        launches = launches_now()
+        y = ys.gather(dev)                                  # [N, B, M, 2, T]
+        del ys
+        chain = BinauralChain(conv, eq, eq, 960, BLOCK, blocks_per_step=M)
+        plain = fresh()
+        ref = torch.empty_like(y)
+        for n in range(N):
+            plain, ref[n] = chain(plain, x[n])
+        rel = ((y.double() - ref.double()).pow(2).mean().sqrt()
+               / ref.double().pow(2).mean().sqrt()).item()
+        del ref
+        host_x = x[:, lanes].permute(1, 2, 0, 3, 4).reshape(
+            len(lanes), SPEAKERS, -1).cpu().numpy()
+        host_y = y[:, lanes].permute(1, 3, 0, 2, 4).reshape(
+            len(lanes), EARS, -1).cpu().numpy()
+        del y
+        lane_err = [rel_rms(host_y[i], reference_lane(hrir, host_x[i], preamp,
+                                                      coeffs))
+                    for i in range(len(lanes))]
+        one = pmesh.StreamShards(mesh).split(x[:1], 1)
+
+        def sharded_step():
+            nonlocal sharded
+            sharded, _ = run(conv, eq, eq, sharded, one)
+
+        def plain_step():
+            nonlocal plain
+            plain, _ = chain(plain, x[0])
+
+        turns = [cuda_ms(f, MESH_TIMED_STEPS)
+                 for f in (plain_step, sharded_step, sharded_step, plain_step)]
+        del x, one, sharded, plain
+    torch.cuda.empty_cache()
+    result = dict(part="bake", card=smi, **mesh_fields(devices), batch=B,
+                  blocks_per_step=M, steps=N, launches=launches,
+                  rel_rms_vs_unsharded=rel, lanes=lanes, lane_rel_rms=lane_err,
+                  step_ms_sharded=(turns[1] + turns[2]) / 2,
+                  step_ms_sharded_turns=turns[1:3],
+                  step_ms_unsharded=(turns[0] + turns[3]) / 2,
+                  step_ms_unsharded_turns=[turns[0], turns[3]])
+    phase("mesh", **result)
+    if not rel <= MESH_TOL:
+        raise AssertionError(f"mesh bake: rel-RMS {rel} against the "
+                             f"unsharded bake > {MESH_TOL}")
+    if not max(lane_err) <= CHAIN_TOL:
+        raise AssertionError(f"mesh bake: lane rel-RMS {lane_err} > "
+                             f"{CHAIN_TOL}")
+    want = N * MESH_SHARDS
+    if (launches["mac_kmajor_pages"]["total"] != want
+            or launches["mac_kmajor"]["total"]):
+        raise AssertionError(f"mesh bake: launches {launches}, expected {want} "
+                             f"of mac_kmajor_pages (one per shard and step)")
+    return {"launches": totals(launches), "checks": checked.cases()}
+
+
+def mesh_pool_part(label: str, make, lanes: int, M: int, shards: int,
+                   control, rng: np.random.Generator, smi: str) -> dict:
+    """A pool over `shards` shards and the unsharded pool (make(mesh) and
+    make(None)) on the same ragged traffic through control(pool, round)'s
+    EQ retarget and hot-swap: every delivered lane of the sharded pool
+    within MESH_TOL of the unsharded one, one MAC launch per shard and
+    group a round; host and device ms of a saturated round of each, in
+    turns; then a snapshot of the sharded pool restored into the unsharded
+    one (its snapshot equal to the first bit for bit, its output within
+    MESH_TOL) and into the sharded pool itself (its output bit for bit the
+    uninterrupted rounds')."""
+    devices = mesh_devices(shards)
+    sharded, plain = make(pmesh.make_mesh(devices)), make(None)
+    for pool in (sharded, plain):
+        for lane in range(lanes):
+            pool.attach(lane // pool.group_size)
+    sharded.prewarm(include_hotswap=True)
+    step = sharded.step_frames
+    base = rng.standard_normal((lanes, SPEAKERS, step), dtype=np.float32)
+    base *= 0.25
+    rounds = MESH_POOL_ROUNDS[M]
+    err2, ref2 = np.zeros(lanes), np.zeros(lanes)
+    per_round = []
+    with CheckedMacs(f"mesh_{label}") as checked:
+        for r in range(rounds):
+            for pool in (sharded, plain):
+                control(pool, r)
+            fed = np.nonzero(rng.random(lanes) < POOL_SHARE)[0]
+            if r == rounds - 1:
+                fed = np.arange(lanes)  # every pending fade plays out
+            mk.reset_launch_count()
+            got = feed_round(sharded, fed, base[:len(fed)])
+            per_round.append(launches_now())
+            want = feed_round(plain, fed, base[:len(fed)]).astype(np.float64)
+            err2[fed] += ((got - want) ** 2).sum(axis=(1, 2))
+            ref2[fed] += (want ** 2).sum(axis=(1, 2))
+    lane_err = float(np.sqrt(err2[ref2 > 0] / ref2[ref2 > 0]).max())
+    kernel = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+    launches = {name: sum(c[name]["total"] for c in per_round)
+                for name in KERNELS}
+    every = np.arange(lanes)
+    turns = (("unsharded", plain), ("sharded", sharded),
+             ("sharded", sharded), ("unsharded", plain))
+    host, device = {}, {}
+    for pool in (plain, sharded):
+        feed_round(pool, every, base)  # warm-up
+    for key, pool in turns:
+        t0 = time.perf_counter()
+        feed_round(pool, every, base)
+        host.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+    rounds_alone = {"unsharded": device_round(plain, base),
+                    "sharded": device_round(sharded, base)}
+    for key, _ in turns:
+        device.setdefault(key, []).append(cuda_ms(rounds_alone[key], 3))
+    del rounds_alone
+    host_ms = {k: sum(v) / len(v) for k, v in host.items()}
+    device_ms = {k: sum(v) / len(v) for k, v in device.items()}
+    snap = sharded.snapshot()
+    plain.restore(snap)
+    snapshot_equal = all(np.array_equal(a, b) for a, b in zip(
+        snapshot_arrays(plain.snapshot()), snapshot_arrays(snap)))
+    feeds = [np.nonzero(rng.random(lanes) < POOL_SHARE)[0] for _ in range(2)]
+    first = [feed_round(sharded, f, base[:len(f)]) for f in feeds]
+    flat = [feed_round(plain, f, base[:len(f)]) for f in feeds]
+    sharded.restore(snap)
+    again = [feed_round(sharded, f, base[:len(f)]) for f in feeds]
+    resume_equal = all(np.array_equal(a, b) for a, b in zip(first, again))
+    resume_rel = max(rel_rms(a, b) for a, b in zip(flat, first))
+    stats = sharded.stats()
+    result = dict(
+        part=label, card=smi, **mesh_fields(devices), lanes=lanes,
+        blocks_per_step=M, groups=sharded.groups, rounds=rounds,
+        fade_rounds=stats["fade_rounds"], debt_rolls=stats["debt_rolls"],
+        variant_rounds=stats["variant_rounds"], launches=launches,
+        launches_per_round=[c[kernel]["total"] for c in per_round],
+        lane_rel_rms_vs_unsharded=lane_err,
+        host_ms_per_round=host_ms, host_ms_per_round_turns=host,
+        device_ms_per_round=device_ms, device_ms_per_round_turns=device,
+        host_share={k: 1 - device_ms[k] / host_ms[k] for k in host_ms},
+        snapshot_bytes=sum(a.nbytes for a in snapshot_arrays(snap)),
+        snapshot_restored_unsharded_equal=snapshot_equal,
+        resumed_sharded_bit_equal=resume_equal,
+        resumed_unsharded_rel_rms=resume_rel)
+    phase("mesh", **result)
+    if not lane_err <= MESH_TOL:
+        raise AssertionError(f"mesh {label}: lane rel-RMS {lane_err} against "
+                             f"the unsharded pool > {MESH_TOL}")
+    want = shards * sharded.groups
+    if any(c[kernel]["total"] != want for c in per_round) or launches[
+            "mac_kmajor_pages" if M == 1 else "mac_kmajor"]:
+        raise AssertionError(f"mesh {label}: launches per round "
+                             f"{result['launches_per_round']}, expected {want} "
+                             f"of {kernel}")
+    if not stats["fade_rounds"] or stats["render_errors"]:
+        raise AssertionError(f"mesh {label}: no fade round ran, or errors: "
+                             f"{stats}")
+    if not (snapshot_equal and resume_equal and resume_rel <= MESH_TOL):
+        raise AssertionError(f"mesh {label}: snapshot equal {snapshot_equal}, "
+                             f"resume equal {resume_equal}, unsharded resume "
+                             f"rel-RMS {resume_rel}")
+    return {"launches": launches, "checks": checked.cases()}
+
+
+def device_round(pool: StreamPool, base: np.ndarray):
+    """A function running one saturated device round of `pool` alone: every
+    lane's step (the "_id" variant) on device-resident input, each shard's
+    on its own device and stream and its own fresh carry, in one fork-join
+    round, so CUDA events on the current stream span every shard; what a
+    pump round queues on the card, without the host's staging and delivery
+    (saturated_round's round for a pool of any shard count)."""
+    variant = "ring_id" if pool.blocks_per_step == 1 else "paged_id"
+    targets = [rt.active.params for rt in pool.eq_runtimes]
+    args = (pool._conv_params, pool._pack(targets),
+            pool._pack(pool._operands(q, g) for g, q in enumerate(targets)))
+    x = torch.from_numpy(base[pool._shard_order])  # shard by shard
+    if pool.blocks_per_step > 1:
+        x = x.view(x.shape[0], SPEAKERS, pool.blocks_per_step, BLOCK)
+    L = pool.groups * pool._unit_lanes
+    shards = []
+    for s, dev in enumerate(pool._shards.devices):
+        params, p, operands = pool._replicas.on(args, dev)
+        shards.append([params, p, operands, pool._fresh_state(s),
+                       x[s * L:(s + 1) * L].to(dev),
+                       torch.arange(L, device=dev)])
+
+    def run():
+        with torch.inference_mode(), pool._shards.round():
+            for s, sh in enumerate(shards):
+                with pool._shards.shard(s):
+                    sh[3], _ = pool_step_body(
+                        sh[0], sh[1], sh[1], sh[3], sh[4], sh[5],
+                        pool.eq_runtime.transition_length, True, False,
+                        variant, sh[2])
+
+    return run
+
+
+def mesh_pools(wavs, dev: torch.device, rng: np.random.Generator,
+               smi: str) -> dict:
+    """The sharded pools of pool_phase's data: ring and paged tiers over
+    MESH_SHARDS shards, and a grouped ring pool over MESH_GROUPED_SHARDS."""
+    out = {}
+    for label, M in (("pool_ring", 1), ("pool_paged", BLOCKS_PER_STEP)):
+        renderers = [prepare_renderer(w, channel_maps.STEREO, SAMPLE_RATE,
+                                      BLOCK, lookahead=M, device=dev)
+                     for w in wavs[:2]]
+
+        def make(mesh, M=M, r=renderers[0]):
+            return StreamPool(POOL_LANES[M], SAMPLE_RATE, r,
+                              eq_definition=bench_eq_definition(),
+                              block_size=BLOCK, blocks_per_step=M, mesh=mesh,
+                              device=None if mesh else dev)
+
+        def control(pool, r, M=M, swap=renderers[1]):
+            if r == MESH_POOL_ROUNDS[M] // 3:
+                pool.set_equalizer(bench_eq_definition(0.5))
+            if r == 2 * MESH_POOL_ROUNDS[M] // 3:
+                pool.set_renderer(swap)
+
+        out[f"mesh_{label}"] = mesh_pool_part(label, make, POOL_LANES[M], M,
+                                              MESH_SHARDS, control, rng, smi)
+        torch.cuda.empty_cache()
+    renderers = [prepare_renderer(w, channel_maps.STEREO, SAMPLE_RATE, BLOCK,
+                                  device=dev) for w in wavs]
+
+    def make_grouped(mesh):
+        return StreamPool(POOL_LANES[1], SAMPLE_RATE, block_size=BLOCK,
+                          mesh=mesh, device=None if mesh else dev, profiles=[
+                              PoolProfile(renderers[bank], bench_eq_definition(
+                                  GROUPED_EQ_SCALES[g]))
+                              for g, bank in enumerate(GROUPED_BANKS)])
+
+    def control_grouped(pool, r):
+        if r == MESH_POOL_ROUNDS[1] // 3:
+            pool.set_equalizer(bench_eq_definition(GROUPED_EQ_SCALES[-1]),
+                               group=1)
+        if r == 2 * MESH_POOL_ROUNDS[1] // 3:
+            pool.set_renderer(renderers[1], group=0)
+
+    out["mesh_pool_grouped"] = mesh_pool_part(
+        "pool_grouped", make_grouped, POOL_LANES[1], 1, MESH_GROUPED_SHARDS,
+        control_grouped, rng, smi)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_speaker_part(wav, dev: torch.device, rng: np.random.Generator,
+                      smi: str) -> dict:
+    """The 7.1.4 renderer's 8 resolved speakers over a (2 streams x 4
+    speakers) mesh at B=8192 with the 10-filter EQ, against the unsharded
+    chain_step_fn, step by step, and one step of each in CUDA-event time,
+    in turns."""
+    renderer = prepare_renderer(wav, channel_maps.ATMOS_7_1_4, SAMPLE_RATE,
+                                BLOCK, device=dev)
+    S, B = renderer.num_speakers, SPEAKER_LANES
+    if S != 8:
+        raise AssertionError(f"7.1.4 resolved {S} speakers, expected 8")
+    devices = mesh_devices(int(np.prod(SPEAKER_MESH)))
+    preamp, coeffs = bench_eq()
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+    with torch.inference_mode():
+        conv = renderer.conv_params
+        eq = eq_block.make_eq_params(coeffs, preamp, BLOCK, device=dev)
+        x = torch.randn((SPEAKER_STEPS, B, S, BLOCK), generator=gen,
+                        device=dev) * 0.25
+
+        def fresh():
+            return ChainState(
+                conv=upols.make_conv_state(B, S, renderer.partition_count,
+                                           BLOCK, dev),
+                eq=eq_block.make_eq_state(B, device=dev))
+
+        ops = make_chain_operands(conv, None, 1, upols.padded_bin_count(BLOCK))
+        mesh = pmesh.make_mesh(devices, ("streams", "speakers"),
+                               shape=SPEAKER_MESH)
+        step = pmesh.stream_speaker_sharded_step(mesh, 960)
+        sharded, plain = fresh(), fresh()
+        ys = []
+        mk.reset_launch_count()
+        with CheckedMacs("mesh_speakers") as checked:
+            for n in range(SPEAKER_STEPS):
+                sharded, y = step(conv, eq, eq, sharded, x[n])
+                ys.append(y.gather("cpu").numpy())
+        launches = launches_now()
+        errs = []
+        for n in range(SPEAKER_STEPS):
+            plain, want = chain_step_fn(conv, eq, eq, plain, x[n], 960, True,
+                                        True, True, ops)
+            errs.append(rel_rms(ys[n], want.cpu().numpy()))
+
+        def sharded_step():
+            nonlocal sharded
+            sharded, _ = step(conv, eq, eq, sharded, x[0])
+
+        def plain_step():
+            nonlocal plain
+            plain, _ = chain_step_fn(conv, eq, eq, plain, x[0], 960, True,
+                                     True, True, ops)
+
+        turns = [cuda_ms(f, MESH_TIMED_STEPS)
+                 for f in (plain_step, sharded_step, sharded_step, plain_step)]
+        # Where the sharded step's card time goes (for the record).
+        profile = dict(zip(("device_ms", "top_kernels", "top_ops"),
+                           device_breakdown(sharded_step, reps=1)))
+        del x, sharded, plain
+    torch.cuda.empty_cache()
+    R = 2 * renderer.partition_count * S // SPEAKER_MESH[1]
+    result = dict(part="speakers_7_1_4", card=smi, **mesh_fields(devices),
+                  mesh_shape=list(SPEAKER_MESH), batch=B, speakers=S,
+                  speaker_shard_R=R, steps=SPEAKER_STEPS, launches=launches,
+                  rel_rms_vs_unsharded=errs,
+                  step_ms_sharded=(turns[1] + turns[2]) / 2,
+                  step_ms_sharded_turns=turns[1:3],
+                  step_ms_unsharded=(turns[0] + turns[3]) / 2,
+                  step_ms_unsharded_turns=[turns[0], turns[3]],
+                  sharded_step_profile=profile)
+    phase("mesh", **result)
+    if not max(errs) <= CHAIN_TOL:
+        raise AssertionError(f"mesh speakers: rel-RMS {errs} > {CHAIN_TOL}")
+    # Each step: one launch per speaker shard.
+    want = SPEAKER_STEPS * int(np.prod(SPEAKER_MESH))
+    if launches["mac_kmajor"]["total"] != want:
+        raise AssertionError(f"mesh speakers: launches {launches}, expected "
+                             f"{want} of mac_kmajor")
+    return {"launches": totals(launches), "checks": checked.cases()}
+
+
+MULTIHOST_WORKER = os.path.join(REPO, "tests", "_torch_multihost_worker.py")
+
+
+def start_multihost(dev: torch.device, directory: str) -> tuple:
+    """Start tests/_torch_multihost_worker.py as two gloo processes on
+    `dev` writing into `directory`; returns (processes, start time)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, MULTIHOST_WORKER, f"127.0.0.1:{port}", "2", str(pid),
+         directory, str(dev), str(MULTIHOST_LANES), str(BLOCK),
+         str(HRIR_TAPS)], cwd=REPO, env=child_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(2)]
+    return procs, time.perf_counter()
+
+
+def stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def mesh_multihost_part(started: tuple, directory: str, dev: torch.device,
+                        smi: str) -> dict:
+    """The two processes of start_multihost (2 virtual shards of `dev`
+    each, MULTIHOST_LANES lanes in all): host_shard_spec, make_global_array
+    and the stream-sharded step, then a speaker-sharded step whose rows
+    span both processes; the union of their rows against one process
+    within 1e-5, and every MAC launch of theirs, held against its plain
+    version in the process, within KERNEL_TOL."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("multihost_worker",
+                                                  MULTIHOST_WORKER)
+    wk = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(wk)
+    procs, t0 = started
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        stop(procs)
+    for p, (_, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost worker exited {p.returncode}: "
+                                 f"{err[-2000:]}")
+    seconds = time.perf_counter() - t0
+    data = []
+    for pid in range(2):
+        with np.load(os.path.join(directory, f"out_{pid}.npz")) as f:
+            data.append({k: f[k] for k in f.files})
+    B, T = MULTIHOST_LANES, BLOCK
+    hrir, x = wk.build_inputs(B, T, HRIR_TAPS)
+    got = np.zeros((wk.N_BLOCKS, B, EARS, T), np.float32)
+    covered = np.zeros(B, bool)
+    for d in data:
+        covered[int(d["start"]):int(d["start"]) + int(d["count"])] = True
+        for key, rows in d.items():
+            if key.startswith("block"):
+                blk, row = key.replace("block", "").split("_row")
+                got[int(blk), int(row):int(row) + rows.shape[0]] = rows
+    with torch.inference_mode():
+        conv = upols.make_conv_params(hrir, T, pad_to_pow2=False, device=dev)
+        preamp, coeffs = bd.design_cascade(bd.EqualizerDefinition(-3.0),
+                                           SAMPLE_RATE)
+        eq = eq_block.make_eq_params(coeffs, preamp, T, device=dev)
+
+        def fresh():
+            return ChainState(
+                conv=upols.make_conv_state(B, wk.S, conv.partition_count, T,
+                                           dev),
+                eq=eq_block.make_eq_state(B, device=dev))
+
+        streams, speakers = fresh(), fresh()
+        errs, speaker_errs = [], []
+        for i in range(wk.N_BLOCKS):
+            xi = torch.from_numpy(x[i]).to(dev)
+            streams, y = chain_step_fn(conv, eq, eq, streams, xi, 960, True,
+                                       True, False)
+            errs.append(rel_rms(got[i], y.cpu().numpy()))
+            speakers, y = chain_step_fn(conv, eq, eq, speakers, xi, 960, True,
+                                        True, True)
+            speaker_errs += [rel_rms(d[f"speakers{i}"], y.cpu().numpy())
+                             for d in data]
+    launches = {key: [int(d[key]) for d in data]
+                for key in ("launches_streams", "launches_speakers")}
+    checks, checked = [], {key: [] for key in launches}
+    for pid, d in enumerate(data):
+        for step in ("streams", "speakers"):
+            cases = json.loads(str(d[f"mac_checks_{step}"]))
+            checks += [dict(kernel="mac_kmajor",
+                            case=f"mesh_multihost process {pid} {step} "
+                                 f"{shape}", **c)
+                       for shape, c in cases.items()]
+            checked[f"launches_{step}"].append(
+                sum(c["launches"] for c in cases.values()))
+    result = dict(part="multihost", card=smi, processes=2, backend="gloo",
+                  shards_per_process=2, batch=B, block=T, hrir_taps=HRIR_TAPS,
+                  seconds_with_serve_part=seconds,
+                  covered=bool(covered.all()), rel_rms_streams=errs,
+                  rel_rms_speakers=speaker_errs, launches=launches,
+                  checked_launches=checked, mac_checks=checks)
+    phase("mesh", **result)
+    bad = [c for c in checks if not c["rel_rms"] <= KERNEL_TOL]
+    if bad:
+        raise AssertionError(f"multihost: MAC launches against the plain "
+                             f"version above {KERNEL_TOL}: {bad}")
+    if checked != launches:
+        raise AssertionError(f"multihost: checked launches {checked}, "
+                             f"launched {launches}")
+    if not covered.all():
+        raise AssertionError("multihost: the processes left lanes uncovered")
+    if not max(errs + speaker_errs) <= CHAIN_TOL:
+        raise AssertionError(f"multihost: rel-RMS {errs} {speaker_errs} > "
+                             f"{CHAIN_TOL}")
+    # Each process: 2 stream shards a block; one speaker shard of each of
+    # its 2 rows a block.
+    want = {"launches_streams": [2 * wk.N_BLOCKS] * 2,
+            "launches_speakers": [2 * wk.N_BLOCKS] * 2}
+    if launches != want:
+        raise AssertionError(f"multihost: launches {launches}, expected {want}")
+    return {"launches": {"mac_kmajor": sum(map(sum, launches.values())),
+                         "mac_kmajor_pages": 0}, "checks": checks}
+
+
+def mesh_serve_part(files: ServeFiles, rng: np.random.Generator,
+                    smi: str) -> None:
+    """`serve --mesh-devices 1` as a process answers one client (within
+    1e-5 of float64 past the EQ's ramp); `--mesh-devices N` with one card
+    more than are visible exits with the JAX CLI's error."""
+    x = rng.standard_normal((SPEAKERS, MESH_SERVE_FRAMES),
+                            dtype=np.float32) * 0.25
+    inp = os.path.join(files.dir, "mesh-in.wav")
+    outp = os.path.join(files.dir, "mesh-out.wav")
+    wavio.save(inp, x, SAMPLE_RATE)
+    serve = ["--hrir", files.hrir, "--eq", files.eq, "--port", "0",
+             "--max-streams", "8", "--mesh-devices", "1"]
+    proc = ServeProcess(serve, os.path.join(files.dir, "mesh-serve.err"))
+    try:
+        ready = proc.ready()
+        host, port = ready["listening"]
+        client = run_cli("client", "--input", inp, "--output", outp,
+                         "--host", host, "--port", str(port))
+        rc = proc.interrupt()
+    finally:
+        proc.close()
+    y = wavio.load(outp).audio
+    skip = EQ_RAMP + BLOCK
+    err = rel_rms(y[:, skip:], files.reference(x)[:, skip:])
+    too_many = torch.cuda.device_count() + 1
+    refused = subprocess.run(
+        [sys.executable, "-m", "airwave_tpu_torch", "serve", "--hrir",
+         files.hrir, "--port", "0", "--mesh-devices", str(too_many)],
+        cwd=REPO, env=child_env(), capture_output=True, text=True, timeout=240)
+    message = f"--mesh-devices {too_many}: only {too_many - 1} devices visible"
+    phase("mesh", part="serve", card=smi, listening=ready, client=client,
+          client_rel_rms_past_ramp=err, exit=rc,
+          refused_mesh_devices=too_many, refused_exit=refused.returncode,
+          refused_error=refused.stderr.strip().splitlines()[-1:])
+    if ready["mesh_devices"] != 1 or rc or client["truncated"]:
+        raise AssertionError(f"mesh serve: {ready}, exit {rc}, {client}")
+    if not err <= CHAIN_TOL:
+        raise AssertionError(f"mesh serve: client rel-RMS {err} > {CHAIN_TOL}")
+    if refused.returncode == 0 or message not in refused.stderr:
+        raise AssertionError(f"mesh serve: --mesh-devices {too_many} did not "
+                             f"exit with '{message}': {refused.stderr[-800:]}")
+
+
+def mesh_phase(wavs, files: ServeFiles, dev: torch.device,
+               rng: np.random.Generator, smi: str) -> tuple:
+    """The five parts of the mesh phase; returns (launches by path, the
+    shards' MAC checks)."""
+    t0 = time.perf_counter()
+    parts = {"mesh_bake": mesh_bake_part(rng, dev, smi)}
+    parts.update(mesh_pools(wavs, dev, rng, smi))
+    parts["mesh_speakers"] = mesh_speaker_part(wavs[0], dev, rng, smi)
+    # The two processes start while the serve part runs (neither is timed).
+    with tempfile.TemporaryDirectory() as tmp:
+        started = start_multihost(dev, tmp)
+        try:
+            mesh_serve_part(files, rng, smi)
+        except BaseException:
+            stop(started[0])
+            raise
+        parts["mesh_multihost"] = mesh_multihost_part(started, tmp, dev, smi)
+    phase("mesh", part="done", card=smi, seconds=time.perf_counter() - t0)
+    launches = {path: p["launches"] for path, p in parts.items()}
+    checks = [c for p in parts.values() for c in p.get("checks", [])]
+    return launches, checks
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3394,7 +4073,11 @@ def main() -> None:
     with CheckedMacs("migration") as checked:
         launches["migration"] = migration_phase(wav, dev, rng, smi)
     launches["planner"], planner_checks = planner_phase(wav, dev, peaks, smi)
-    path_checks = checked.cases() + planner_checks
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_launches, mesh_checks = mesh_phase(
+            [wav, swap[0], short, short2, swap[1]],
+            ServeFiles(tmp, wav, args.seed), dev, rng, smi)
+    path_checks = checked.cases() + planner_checks + mesh_checks
     phase("path_checks", tolerance_rel_rms=KERNEL_TOL, cases=path_checks)
     silent = [c["case"] for c in path_checks
               if not c["nonzero_reference_launches"]]
@@ -3417,7 +4100,8 @@ def main() -> None:
                 for path, counts in {
                     **hotswap, **checkpoints,
                     **{k: launches[k] for k in ("pool_grouped",
-                                                "pool_grouped_paged")}}.items()}}
+                                                "pool_grouped_paged")}}.items()},
+             **mesh_launches}
     # Each kernel's headline case: the single block at B=16384 (bake M=1)
     # and the fused 3 pages (bake M=8 and the paged pool).
     entries = []

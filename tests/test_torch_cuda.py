@@ -725,3 +725,194 @@ def test_round3_fixture_restores_and_continues_on_card(cuda_device):
         got = conts[str(cuda_device)][j]
         assert rel_rms(got, conts["cpu"][j]) <= 1e-5
         assert rel_rms(got, tails[j]) <= 1e-5
+
+
+def _sharded_pool_parity(devices, M, groups):
+    """Drive a pool sharded over `devices` and the unsharded pool on
+    cuda:0 with the same ragged traffic, a retarget and a hot-swap; returns
+    (per-lane rel-RMS of the sharded output against the unsharded, MAC
+    launches per round of the sharded pool, its rounds)."""
+    from airwave_tpu_torch.parallel.mesh import make_mesh
+
+    T, lanes = 64, 8 * groups
+    wavs = [_wav(20 + g) for g in range(groups)]
+    dev0 = torch.device("cuda", 0)
+    kernel = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+
+    def build(mesh):
+        kw = dict(block_size=T, blocks_per_step=M,
+                  device=None if mesh else dev0)
+        rends = [prepare_renderer(w, channel_maps.STEREO, 48_000.0, T,
+                                  lookahead=M, device=dev0) for w in wavs]
+        if groups > 1:
+            return StreamPool(lanes, 48_000.0, mesh=mesh, profiles=[
+                PoolProfile(r, _preset(1.0 + g)) for g, r in enumerate(rends)],
+                **kw)
+        return StreamPool(lanes, 48_000.0, rends[0], _preset(2.0), mesh=mesh,
+                          **kw)
+
+    pools = [build(make_mesh(devices)), build(None)]
+    for pool in pools:
+        for lane in range(lanes):
+            assert pool.attach(lane // 8) == lane
+    swap = prepare_renderer(_wav(40), channel_maps.STEREO, 48_000.0, T,
+                            lookahead=M, device=dev0)
+    rng = np.random.default_rng(M + groups)
+    step = pools[0].step_frames
+    outs = [[[] for _ in range(lanes)] for _ in pools]
+    launches, rounds = 0, 0
+    for rnd in range(16):
+        if rnd == 4:
+            for pool in pools:
+                pool.set_equalizer(_preset(-3.0), group=groups - 1)
+        if rnd == 8:
+            for pool in pools:
+                pool.set_renderer(swap, group=0)
+        fed = np.nonzero(rng.random(lanes) < 0.7)[0]
+        chunks = (rng.standard_normal((len(fed), 2, step)) * 0.3).astype(
+            np.float32)
+        for pool, out in zip(pools, outs):
+            pool.push_many(fed, chunks)
+            mk.reset_launch_count()
+            got = pool.pump()
+            if pool is pools[0]:
+                launches += mk.launch_count(kernel)
+                rounds += got
+            y = pool.pull_many(fed, step)
+            for j, lane in enumerate(fed):
+                out[lane].append(y[j])
+    errs = [rel_rms(np.concatenate(a, -1), np.concatenate(b, -1))
+            for a, b in zip(*outs)]
+    return errs, launches, rounds
+
+
+@pytest.mark.parametrize("M,groups", [(1, 1), (8, 1), (1, 2)])
+def test_sharded_pool_on_card_matches_unsharded(cuda_device, M, groups):
+    """A pool over 2 virtual shards of cuda:0 (each its own carry, kernel
+    launches and CUDA stream) delivers the unsharded pool's audio within
+    1e-6, one MAC launch per shard and group a round."""
+    errs, launches, rounds = _sharded_pool_parity([cuda_device] * 2, M,
+                                                  groups)
+    assert rounds > 0 and launches == 2 * groups * rounds
+    assert max(errs) <= 1e-6, errs
+
+
+def test_sharded_pool_on_distinct_cards(cuda_device):
+    """The same over two distinct cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    errs, launches, rounds = _sharded_pool_parity(["cuda:0", "cuda:1"], 1, 1)
+    assert rounds > 0 and launches == 2 * rounds
+    assert max(errs) <= 1e-6, errs
+    assert torch.cuda.current_device() == 0
+
+
+def test_launch_keeps_the_callers_device(cuda_device):
+    """A launch on another card than the current one leaves the current
+    device as it was (both kernels)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    rng = np.random.default_rng(5)
+    fdl = torch.tensor(rng.standard_normal((24, 7, 300), dtype=np.float32),
+                       device=other)
+    h = torch.tensor(rng.standard_normal((24, 4, 7), dtype=np.float32),
+                     device=other)
+    bank = torch.stack([h, h])
+    with torch.cuda.device(0):
+        got = mk.mac_kmajor(fdl, h)
+        assert torch.cuda.current_device() == 0
+        paged = mk.mac_kmajor_pages([fdl, fdl], bank)
+        assert torch.cuda.current_device() == 0
+    torch.testing.assert_close(got, mk.mac_kmajor_ref(fdl, h))
+    torch.testing.assert_close(paged, mk.mac_kmajor_pages_ref([fdl, fdl], bank))
+
+
+def test_single_speaker_step_on_card_matches_cpu(cuda_device):
+    """A one-speaker bank (a speaker shard's) through the single-block step
+    on the card, every cursor, against the CPU."""
+    rng = np.random.default_rng(11)
+    hrir = (rng.standard_normal((1, 2, 300)) * 0.2).astype(np.float32)
+    x = torch.tensor(rng.standard_normal((8, 5, 1, 64), dtype=np.float32))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        params = upols.make_conv_params(hrir, 64, device=dev)
+        state = upols.make_conv_state(5, 1, params.partition_count, 64, dev)
+        ys = []
+        for xb in x.to(dev):
+            state, y = upols.conv_step(params, state, xb)
+            ys.append(y.cpu().numpy())
+        outs.append(np.stack(ys))
+    assert rel_rms(outs[0], outs[1]) <= 1e-6
+
+
+def test_validation_ops_on_card_match_cpu_and_oracle(cuda_device):
+    """ops/biquad_scan and resample_polyphase_device at their default
+    device (the card): the scan over 5 blocks of 160 in float32 and
+    float64 against the per-sample EQ oracle (float64 inside, float32 out:
+    1e-4 as the CPU test, and 1e-7, that output's rounding, in float64)
+    and against the same calls on the CPU (2e-4 in float32, where each
+    side's roundoff is up to 1e-4 and the card's reductions group other
+    terms than the CPU's; 1e-11 in float64), and a float64 impulse against
+    tests/test_biquad_scan.py's golden values (1e-9); the device resampler
+    against the CPU call and the float64 host resampler (2e-5)."""
+    from airwave_tpu_torch.io.apo import (EqualizerDefinition,
+                                          EqualizerFilter, FilterType)
+    from airwave_tpu_torch.ops import biquad_scan, resample
+    from airwave_tpu_torch.oracle.eq_oracle import EqCascadeOracle
+
+    rng = np.random.default_rng(0)
+    filters = [("PEAKING", 1_000, 6, 0.707), ("LOW_SHELF", 105, -2.8, 0.70),
+               ("HIGH_SHELF", 10_000, -5.2, 0.70)]
+    preamp, coeffs = bd.design_cascade(EqualizerDefinition(-2.0, tuple(
+        EqualizerFilter(1, None, True, getattr(FilterType, t), f, g, q)
+        for t, f, g, q in filters)), 48_000)
+    B, T, n = 3, 160, 5
+    x = (rng.standard_normal((B, 2, n * T)) * 0.5).astype(np.float32)
+    oracle = np.stack([np.stack(EqCascadeOracle(coeffs, preamp, 48_000)
+                                .process(x[b, 0], x[b, 1])) for b in range(B)])
+    for dtype, tol, cpu_tol in ((torch.float32, 1e-4, 2e-4),
+                                (torch.float64, 1e-7, 1e-11)):
+        outs = []
+        for where in ({}, {"device": "cpu"}):
+            params = biquad_scan.make_scan_params(coeffs, preamp, dtype=dtype,
+                                                  **where)
+            state = biquad_scan.make_scan_state(B, dtype=dtype, **where)
+            dev = params.A.device
+            assert dev.type == ("cpu" if where else "cuda")
+            assert state.device == dev
+            ys = []
+            for i in range(n):
+                blk = torch.from_numpy(x[:, :, i * T:(i + 1) * T])
+                state, y = biquad_scan.eq_scan_block(params, state,
+                                                     blk.to(dev, dtype))
+                ys.append(y.cpu().numpy())
+            outs.append(np.concatenate(ys, -1))
+        card, cpu = outs
+        for b in range(B):
+            assert rel_rms(card[b], oracle[b]) < tol, (dtype, b)
+        assert rel_rms(card, cpu) <= cpu_tol, dtype
+    preamp, coeffs = bd.design_cascade(EqualizerDefinition(0.0, tuple(
+        EqualizerFilter(1, None, True, FilterType.PEAKING, f, g, q)
+        for f, g, q in ((1_000, 6, 0.707), (3_000, -3, 1.1)))), 48_000)
+    params = biquad_scan.make_scan_params(coeffs, preamp, dtype=torch.float64)
+    impulse = torch.zeros((1, 2, 6), dtype=torch.float64, device=cuda_device)
+    impulse[0, 0, 0] = 1.0
+    _, y = biquad_scan.eq_scan_block(
+        params, biquad_scan.make_scan_state(1, dtype=torch.float64), impulse)
+    golden = [1.007962105198731, 0.026656172367575, 0.046848317472827,
+              0.062845911221200, 0.072328817552935, 0.074696369241889]
+    np.testing.assert_allclose(y[0, 0].cpu().numpy(), golden, rtol=0,
+                               atol=1e-9)
+
+    x = rng.standard_normal((3, 2, 2205)).astype(np.float32) * 0.5
+    card = resample.resample_polyphase_device(x, 44_100.0, 48_000.0)
+    assert card.device.type == "cuda"
+    cpu = resample.resample_polyphase_device(x, 44_100.0, 48_000.0,
+                                             device="cpu")
+    host = np.stack([np.stack([
+        resample.resample_polyphase(x[b, c], 44_100.0, 48_000.0)
+        for c in range(2)]) for b in range(3)])
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(card.cpu().numpy(), host, rtol=0, atol=2e-5)

@@ -62,7 +62,9 @@ def test_port_imports_and_bakes_with_jax_blocked():
                      "tools.convert", "runtime.feeder", "shell.settings",
                      "assets.watcher", "tools.sofa", "tools.spatial",
                      "tools.generate", "tools.plan_capacity",
-                     "utils.memory_planner", "__main__"):
+                     "utils.memory_planner", "parallel.mesh",
+                     "parallel.multihost", "ops.biquad_scan", "ops.resample",
+                     "__main__"):
             assert "airwave_tpu_torch." + name in names, name
 
         from airwave_tpu_torch.models.bake import bake
@@ -303,11 +305,12 @@ def _hrir_wav_and_layout():
 
 def test_entry_points_default_to_the_card():
     """With no device, resolve_device, bake, prepare_renderer, StreamPool,
-    DeviceFeeder and device_hbm_bytes ask for the card; where there is none
-    they raise and run nothing."""
+    DeviceFeeder, device_hbm_bytes and make_mesh ask for the card; where
+    there is none they raise and run nothing."""
     from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
     from airwave_tpu_torch.graph.renderer import prepare_renderer
     from airwave_tpu_torch.models.bake import bake
+    from airwave_tpu_torch.parallel.mesh import make_mesh
     from airwave_tpu_torch.runtime.feeder import DeviceFeeder
     from airwave_tpu_torch.runtime.stream_pool import StreamPool
     from airwave_tpu_torch.utils.memory_planner import device_hbm_bytes
@@ -326,7 +329,7 @@ def test_entry_points_default_to_the_card():
                  lambda: StreamPool(2, 48_000.0, block_size=64,
                                     profiles=[(renderer, None)] * 2),
                  lambda: DeviceFeeder(lambda s, x: (s, x), None),
-                 device_hbm_bytes):
+                 device_hbm_bytes, make_mesh):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
 

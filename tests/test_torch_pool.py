@@ -415,17 +415,13 @@ def test_pump_failure_rebuilds_state_and_reraises(monkeypatch):
 @pytest.mark.parametrize("call, error, match", [
     (lambda p: tsp.StreamPool(2, SR, p.renderer, profiles=[p.renderer],
                               device="cpu"), ValueError, "not both"),
-    (lambda p: tsp.StreamPool(2, SR, p.renderer, mesh=object(),
-                              device="cpu"),
-     NotImplementedError, "ROADMAP Queue 1 item 17"),
     (lambda p: p.set_renderer(p.renderer, group=1), ValueError,
      "group 1 out of range for a single-profile pool"),
-], ids=["profiles", "mesh", "set_renderer"])
+], ids=["profiles", "set_renderer"])
 def test_unported_features_raise(call, error, match):
-    """The mesh is not ported: it raises, naming its ROADMAP item. Profile
-    groups are (tests/test_torch_grouped.py): a renderer passed beside
-    profiles, and a hot-swap of a group a one-profile pool does not have,
-    raise the JAX pool's ValueError."""
+    """Profile groups are ported (tests/test_torch_grouped.py): a renderer
+    passed beside profiles, and a hot-swap of a group a one-profile pool
+    does not have, raise the JAX pool's ValueError."""
     pool = Pair(2).t
     with pytest.raises(error, match=match):
         call(pool)

@@ -178,12 +178,13 @@ def test_status_cpu_prints_json_and_the_card_is_the_default(capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--profile", "{hrir}"], "not both"),
-    (["--mesh-devices", "2"], "item 17"),
+    (["--mesh-devices", "3"], "must divide by --mesh-devices 3"),
 ], ids=["profile", "mesh-devices"])
 def test_unported_serve_flags_exit_cleanly(tmp_path, flags, item):
-    """--mesh-devices exits naming its ROADMAP item; --profile is ported
-    (tests/test_torch_grouped.py) and exits beside --hrir, as the JAX
-    CLI does."""
+    """--profile and --mesh-devices are ported (tests/test_torch_grouped.py,
+    tests/test_torch_parallel.py) and exit cleanly on the JAX CLI's errors:
+    --profile beside --hrir, and a --max-streams (64) that does not divide
+    by --mesh-devices."""
     hrir = hrir_file(tmp_path)
     with pytest.raises(SystemExit, match=item):
         main(["serve", "--cpu", "--hrir", hrir,

@@ -285,3 +285,20 @@ def test_pad_conv_params_matches_jax():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     with pytest.raises(ValueError, match="cannot shrink"):
         tupols.pad_conv_params(pt, 2)
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_rotated_operand_is_contiguous(S):
+    """The single-block MAC operand at every cursor is contiguous, as the
+    card's kernel requires, for one speaker too (where the reshape of the
+    rotated slice would be a strided view), and equals the rotated bank."""
+    rng = np.random.default_rng(S)
+    hrir = (rng.standard_normal((S, 2, 300)) * 0.2).astype(np.float32)
+    params = tupols.make_conv_params(hrir, 64, device="cpu")
+    bank = tupols.single_block_bank(params, 72)
+    P2 = params.partition_count
+    for w in range(P2):
+        h = tupols._rotated_operand(bank, w)
+        assert h.is_contiguous()
+        want = bank[:, :, :, P2 - 1 - w:2 * P2 - 1 - w].reshape(h.shape)
+        torch.testing.assert_close(h, want, rtol=0, atol=0)
