@@ -8,10 +8,14 @@ none raises; nothing falls back to the CPU.
 The 1e-5 chain contract (BASELINE.md) needs every signal-bearing matmul in
 IEEE fp32. On a Hopper card PyTorch may route fp32 products through TF32
 tensor cores (about three decimal digits), so the entry points switch that
-off — the counterpart of the JAX package's Precision.HIGHEST.
+off — the counterpart of the JAX package's Precision.HIGHEST. The relaxed
+tiers (AIRWAVE_MATMUL_PRECISION=high or default, ops/precision) run their
+own bf16 products and leave this policy strict.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -47,3 +51,15 @@ def precision_is_strict() -> bool:
     return (not torch.backends.cuda.matmul.allow_tf32
             and not torch.backends.cudnn.allow_tf32
             and torch.get_float32_matmul_precision() == "highest")
+
+
+def precision_stamp() -> dict:
+    """The fields a result line carries under a relaxed tier, the rule of
+    bench.py:_emit: nothing at AIRWAVE_MATMUL_PRECISION=highest (the
+    default); otherwise the tier, accuracy_contract false, and
+    accuracy_contract_1e4 true for "high" (the relaxed 1e-4 tier) only."""
+    prec = os.environ.get("AIRWAVE_MATMUL_PRECISION", "highest").lower()
+    if prec == "highest":
+        return {}
+    return {"matmul_precision": prec, "accuracy_contract": False,
+            "accuracy_contract_1e4": prec == "high"}

@@ -7,10 +7,13 @@ block with
     y    = x @ Hm^T + s0 @ O^T          (Toeplitz FIR + state output)
     s_T  = s0 @ A_T^T + x @ G^T
 
-in strict fp32 matmuls. Crossfade: the carry holds two cascade states
+in fp32 matmuls. Crossfade: the carry holds two cascade states
 (from/to) and a per-stream sample counter; a crossfading block runs both
 cascades and blends with the exact per-sample ramp
 (counter + t + 1) / L clipped to [0, 1].
+
+The products run at PRECISION (AIRWAVE_MATMUL_PRECISION, ops/precision):
+IEEE fp32 by default, bf16x3 or one bf16 pass when asked.
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ import torch
 
 from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from airwave_tpu_torch.ops import biquad_design as bd
-from airwave_tpu_torch.ops import upols
+from airwave_tpu_torch.ops import precision, upols
+
+# The tier of the EQ's products (ops/precision), read at import.
+PRECISION = precision.resolve("AIRWAVE_MATMUL_PRECISION")
 
 # Counter value meaning "no transition in progress" (golden-tested: any
 # value >= the longest supported transition length works).
@@ -86,10 +92,15 @@ def _advance(counter: torch.Tensor, samples: int) -> torch.Tensor:
     return torch.clamp_max(counter + samples, COUNTER_IDLE)
 
 
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T at PRECISION; w is a weight, split once at a relaxed tier."""
+    return precision.matmul(a, w.T, PRECISION, b_key=w)
+
+
 def _cascade_block(params: EqParams, s: torch.Tensor, x: torch.Tensor):
     """Run one cascade over a block. x [B, C, T], s [B, C, N]."""
-    y = x @ params.Hm.T + s @ params.O.T
-    s_next = s @ params.A_T.T + x @ params.G.T
+    y = _mm(x, params.Hm) + _mm(s, params.O)
+    s_next = _mm(s, params.A_T) + _mm(x, params.G)
     return y, s_next
 
 
@@ -140,9 +151,9 @@ def eq_apply_folded(params: EqParams, state: EqState, fir: torch.Tensor,
     states = []
     for m in range(M):
         states.append(s)
-        s = s @ params.A_T.T + drive[:, m]
+        s = _mm(s, params.A_T) + drive[:, m]
     sm = torch.stack(states, dim=1)  # [B, M, C, N]
-    y = fir + sm @ params.O.T
+    y = fir + _mm(sm, params.O)
     return EqState(s_from=state.s_from, s_to=s,
                    counter=_advance(state.counter, M * fir.shape[-1])), y
 

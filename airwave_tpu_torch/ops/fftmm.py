@@ -7,8 +7,9 @@ planes it returns are exactly the storage format of the delay line
 produce a window of the output only: overlap-save keeps the second half of
 each inverse transform.
 
-The products run in strict fp32 (device.apply_precision_policy): TF32 would
-cost the 1e-5 chain contract.
+The products run in strict fp32 (device.apply_precision_policy) unless
+AIRWAVE_MATMUL_PRECISION or AIRWAVE_DFT_PRECISION names a relaxed tier
+(ops/precision): TF32 would cost the 1e-5 chain contract.
 """
 
 from __future__ import annotations
@@ -19,6 +20,15 @@ import numpy as np
 import torch
 
 from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from airwave_tpu_torch.ops import precision
+
+# The tier of the numerics-bearing products (ops/precision): "highest"
+# (IEEE fp32, the default) holds the 1e-5 chain contract, "high" (bf16x3)
+# the relaxed 1e-4 one, "default" (one bf16 pass) none.
+# AIRWAVE_DFT_PRECISION sets the DFT products (analysis and synthesis)
+# alone and follows AIRWAVE_MATMUL_PRECISION when unset. Read at import.
+PRECISION = precision.resolve("AIRWAVE_MATMUL_PRECISION")
+DFT_PRECISION = precision.resolve("AIRWAVE_DFT_PRECISION", PRECISION)
 
 
 @functools.lru_cache(maxsize=16)
@@ -64,12 +74,16 @@ def irfft_weights(n: int, start: int, length: int,
 
 
 def rfft_mm(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """x [..., n] f32 -> packed planes [..., K, 2] via one fp32 matmul."""
+    """x [..., n] f32 -> packed planes [..., K, 2] via one matmul at
+    DFT_PRECISION."""
     n, k, c = weights.shape
-    return torch.matmul(x, weights.reshape(n, k * c)).unflatten(-1, (k, c))
+    return precision.matmul(x, weights.reshape(n, k * c), DFT_PRECISION,
+                            b_key=weights).unflatten(-1, (k, c))
 
 
 def irfft_mm(planes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Planes [..., K, 2] -> samples [..., length] via one fp32 matmul."""
+    """Planes [..., K, 2] -> samples [..., length] via one matmul at
+    DFT_PRECISION."""
     k, c, length = weights.shape
-    return torch.matmul(planes.flatten(-2), weights.reshape(k * c, length))
+    return precision.matmul(planes.flatten(-2), weights.reshape(k * c, length),
+                            DFT_PRECISION, b_key=weights)

@@ -30,6 +30,10 @@ Everything derived from the params alone (the MAC's filter operands, the
 padded and folded synthesis weights) is built by single_block_bank,
 paged_bank and project_weights; callers that step many times build those
 once and pass them in, since eager PyTorch does not hoist loop invariants.
+
+The analysis and synthesis products run at fftmm.DFT_PRECISION (ops/
+precision: IEEE fp32 by default, bf16x3 or one bf16 pass when asked). The
+MAC is the mac_kmajor kernels in fp32 under every tier.
 """
 
 from __future__ import annotations
@@ -44,7 +48,17 @@ import torch.nn.functional as F
 from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from airwave_tpu_torch.kernels.mac_kmajor import (mac_kmajor, mac_kmajor_pages,
                                                   max_columns)
-from airwave_tpu_torch.ops import fftmm
+from airwave_tpu_torch.ops import fftmm, precision
+
+# The JAX package's tier names (ops/precision). The DFT products read
+# fftmm.DFT_PRECISION. _MAC_PRECISION (AIRWAVE_MAC_PRECISION, following
+# AIRWAVE_MATMUL_PRECISION) is parsed, so that a bad value raises as it does
+# there, and governs nothing: the JAX package applies it to its dot and
+# einsum MAC lowerings only, and the port's MAC is always the mac_kmajor
+# kernels, which run in fp32 under every tier (the Pallas kernel's "true-f32
+# VPU precision", AIRWAVE_MAC_IMPL=pallas). Read at import.
+PRECISION = precision.resolve("AIRWAVE_MATMUL_PRECISION")
+_MAC_PRECISION = precision.resolve("AIRWAVE_MAC_PRECISION", PRECISION)
 
 
 class ConvParams(NamedTuple):
@@ -282,7 +296,11 @@ def project_weights(params: ConvParams, k_padded: int,
     """Synthesis weights as the left operand [X, Q*Kp] of one matmul over
     the MAC output's (plane, bin) rows. A `post` matrix [T, X] is folded in
     (einsum(wi, post)), so an irfft-then-matmul chain is one product and the
-    time-domain intermediate never exists."""
+    time-domain intermediate never exists.
+
+    The fold is built once, in fp32 under every tier: more accurate than
+    the JAX package's fold at DFT_PRECISION (airwave_tpu/ops/upols.py:791).
+    The product that applies the weights runs at fftmm.DFT_PRECISION."""
     w = params.wi                                           # [K, Q, T]
     if post is not None:
         w = torch.einsum("kqt,tx->kqx", w, post)
@@ -326,7 +344,8 @@ def _mac_irfft(fdl: torch.Tensor, h: torch.Tensor,
     Kp, S, P, C, B = fdl.shape
     Y = _mac_columns(fdl.view(Kp, S * P * C, B), h)     # [E*Q, Kp, B]
     E = h.shape[1] // 2
-    y = torch.matmul(synth, Y.view(E, 2 * Kp, B))       # [E, T, B]
+    y = precision.matmul(synth, Y.view(E, 2 * Kp, B), fftmm.DFT_PRECISION,
+                         a_key=synth)                     # [E, T, B]
     return y.permute(2, 0, 1)
 
 
@@ -478,7 +497,8 @@ def conv_step_paged_raw(params: ConvParams, state: PagedConvState,
 
     # Half-window analysis, newest block first: slot j holds block M-1-j.
     xt = x.flip(2).permute(3, 1, 2, 0).reshape(T, S * M * B)    # [t, (s,j,b)]
-    u = torch.mm(params.wf.reshape(T, K * 2).t(), xt)            # [(k,c), (s,j,b)]
+    u = precision.matmul(params.wf.reshape(T, K * 2).t(), xt,
+                         fftmm.DFT_PRECISION, a_key=params.wf)  # [(k,c), (s,j,b)]
     new_page = F.pad(u.view(K, 2, S, M, B).transpose(1, 2),
                      (0, 0, 0, 0, 0, 0, 0, 0, 0, Kp - K))        # [Kp, S, C, M, B]
     if active_mask is not None:
@@ -507,7 +527,8 @@ def paged_project(params: ConvParams, Ykm: torch.Tensor,
     M, E, Q, Kp, B = Ykm.shape
     if synth is None:
         synth = project_weights(params, Kp, post)
-    y = torch.matmul(synth, Ykm.reshape(M * E, Q * Kp, B))     # [M*E, X, B]
+    y = precision.matmul(synth, Ykm.reshape(M * E, Q * Kp, B),
+                         fftmm.DFT_PRECISION, a_key=synth)      # [M*E, X, B]
     return y.view(M, E, -1, B).permute(3, 0, 1, 2)
 
 

@@ -61,6 +61,20 @@ script's elapsed seconds):
      bench.py:measure times the JAX chain, then one 8-block step alone in
      CUDA-event time with its kernels from torch.profiler (for the record
      only);
+  5b. precision: one child interpreter per tier (AIRWAVE_MATMUL_PRECISION
+     highest, high, default; the knobs are read at import) runs
+     tools/validate_accuracy's gate on the paged chain (M=8), the
+     single-block chain and the ring pool against the float64 oracles
+     (highest held to 1e-5, high to 1e-4, default recorded), the headline
+     8-block step in CUDA-event time with torch.profiler's top kernels and
+     ops and its relaxed products counted, the strict fp32 policy checked
+     after it, and the two DFT products at the headline's shapes (analysis
+     [1026, 512] x [512, 262144], folded synthesis [640, 1040] x [16,
+     1040, 16384]): the fp32 torch.mm/matmul's ms and bound, and under a
+     relaxed tier its route (bf16 tensor cores, fp32 accumulation and
+     output) against its plain version (the same split operands in fp32)
+     with rel-RMS and max relative error, its ms, the split's ms and its
+     bound; each line carries device.precision_stamp();
   6. pool: the serving pool's ring tier (StreamPool, 8192 lanes, 48 kHz)
      from a synthetic 14-channel HRIR WAV written and loaded back by the
      port's io.wav, through prepare_renderer, with the 10-filter EQ; 48
@@ -294,6 +308,21 @@ KERNELS = ("mac_kmajor", "mac_kmajor_pages")
 # per second, and fp32 FLOP/s outside the tensor cores (the kernel's type).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12         # dense bf16 tensor-core peak (the relaxed tiers)
+# The precision phase: one child interpreter per tier, each gating the
+# paged chain, the single-block chain and the ring pool against float64
+# (tools/validate_accuracy) at its contract; "default" is recorded only.
+TIERS = ("highest", "high", "default")
+TIER_CONTRACT = {"highest": CHAIN_TOL, "high": 1e-4}
+PRECISION_GATES = (("paged", ("--blocks-per-step", str(BLOCKS_PER_STEP))),
+                   ("single_block", ()), ("pool_ring", ("--pool",)))
+PRECISION_CHILD_TIMEOUT = 240
+# rel-RMS of a tier's route against its plain version (the same split
+# operands in fp32), per unit of one pass's depth K: the H100's tensor cores
+# truncate each k-step's sum into the fp32 accumulator, so the two differ by
+# about K * 2^-30 (4.4e-7 at K=512, 9.1e-7 to 1.04e-6 at K=1040, one bf16
+# pass on seeded normals); the gate allows twice that.
+ROUTE_TOL_PER_K = 2.0 ** -29
 
 HRIR_CHANNELS = 14          # a HeSuVi 14-channel bank, as the assets ship
 EQ_RAMP = 960               # the 20 ms EQ crossfade at 48 kHz, in samples
@@ -523,16 +552,21 @@ def bound(nbytes: float, flops: float) -> dict:
                 bound_by="bytes" if by_bytes >= by_flops else "operations")
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def device_phase() -> str:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         sys.exit(1)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     apply_precision_policy()
     if not precision_is_strict():
@@ -1006,31 +1040,40 @@ def bake_phase(rng: np.random.Generator, dev: torch.device) -> dict:
     return launches
 
 
-def timing_phase(seed: int, dev: torch.device, smi: str) -> int:
-    """The paged chain at B=16384, M=8 on device-resident input, 192 blocks
-    per call with a checksum fetched to the host (bench.py:measure's
-    pattern: one warm-up call, best of 3). Returns the peak device memory."""
+@torch.inference_mode()
+def headline_chain(seed: int, dev: torch.device):
+    """The headline 8-block step (bench.py's paged bake: B=16384, M=8, a
+    seeded 4320-tap bank, the 10-filter EQ): the chain, a zero state and
+    one step's seeded input on the card."""
     M = BLOCKS_PER_STEP
     rng = np.random.default_rng(seed)
     hrir = (rng.standard_normal((SPEAKERS, EARS, HRIR_TAPS)) * 0.05).astype(
         np.float32)
     hrir[:, :, 0] += 0.8
     preamp, coeffs = bench_eq()
+    conv_params = upols.make_conv_params(hrir, BLOCK, pad_to_pow2=False,
+                                         lookahead=M, device=dev)
+    eq = eq_block.make_eq_params(coeffs, preamp, BLOCK, device=dev)
+    chain = BinauralChain(conv_params, eq, eq, 960, BLOCK, blocks_per_step=M)
+    state = ChainState(
+        conv=upols.make_conv_state_paged(
+            BATCH, SPEAKERS, conv_params.partition_count, BLOCK, M, dev),
+        eq=eq_block.make_eq_state(BATCH, device=dev),
+    )
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((BATCH, SPEAKERS, M, BLOCK), generator=gen,
+                    device=dev) * 0.25
+    return chain, state, x
+
+
+def timing_phase(seed: int, dev: torch.device, smi: str) -> int:
+    """The paged chain at B=16384, M=8 on device-resident input, 192 blocks
+    per call with a checksum fetched to the host (bench.py:measure's
+    pattern: one warm-up call, best of 3). Returns the peak device memory."""
+    M = BLOCKS_PER_STEP
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        conv_params = upols.make_conv_params(hrir, BLOCK, pad_to_pow2=False,
-                                             lookahead=M, device=dev)
-        eq = eq_block.make_eq_params(coeffs, preamp, BLOCK, device=dev)
-        chain = BinauralChain(conv_params, eq, eq, 960, BLOCK,
-                              blocks_per_step=M)
-        state = ChainState(
-            conv=upols.make_conv_state_paged(
-                BATCH, SPEAKERS, conv_params.partition_count, BLOCK, M, dev),
-            eq=eq_block.make_eq_state(BATCH, device=dev),
-        )
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        x = torch.randn((BATCH, SPEAKERS, M, BLOCK), generator=gen,
-                        device=dev) * 0.25
+        chain, state, x = headline_chain(seed, dev)
 
         def run(state):
             acc = torch.zeros((8, 128), device=dev)
@@ -1065,6 +1108,159 @@ def timing_phase(seed: int, dev: torch.device, smi: str) -> int:
           device_step_ms=step_ms, device_step_profiled_ms=profiled_ms,
           device_step_top_kernels=kernels, device_step_top_ops=ops)
     return peak
+
+
+def precision_phase(seed: int) -> None:
+    """The precision tiers: a fresh interpreter per tier (the knobs are
+    read at import) with AIRWAVE_MATMUL_PRECISION set, running
+    precision_child; each prints its own line and exits non-zero when a
+    gated tier misses its contract."""
+    torch.cuda.empty_cache()
+    for tier in TIERS:
+        env = child_env()
+        env["AIRWAVE_MATMUL_PRECISION"] = tier
+        for follower in ("AIRWAVE_DFT_PRECISION", "AIRWAVE_MAC_PRECISION"):
+            env.pop(follower, None)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--precision-child",
+             "--seed", str(seed)], env=env, cwd=REPO,
+            timeout=PRECISION_CHILD_TIMEOUT)
+        if proc.returncode != 0:
+            raise AssertionError(f"precision tier {tier}: child exited "
+                                 f"{proc.returncode}")
+
+
+def tier_cases(chain: BinauralChain, tier: str, dev: torch.device,
+               seed: int) -> list:
+    """The headline step's two DFT products on seeded activations: the
+    analysis [1026, 512] x [512, 262144] and the folded synthesis
+    [640, 1040] x [16, 1040, 16384]. Each gives the fp32 torch.mm/matmul
+    (the strict route) with its bound, and under a relaxed tier the tier's
+    route (precision.product on the split operands) against its plain
+    version on the card (the same operands in fp32; rel-RMS within
+    K * ROUTE_TOL_PER_K), the activation split's ms, and the route's
+    bound: max(bytes / 3.35e12,
+    passes * 2MNK / 989e12), the operands read once as bf16 and the fp32
+    output written once (passes 3 at high, 1 at default)."""
+    from airwave_tpu_torch.ops import precision
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wf = chain.conv_wf
+    T = wf.shape[0]
+    n_cols = SPEAKERS * BLOCKS_PER_STEP * BATCH
+    Y_rows = chain.synth_folded.shape[1]
+    shapes = {
+        "analysis": (wf, wf.reshape(T, -1).t(),
+                     torch.randn((T, n_cols), generator=gen, device=dev)),
+        "synthesis": (chain.synth_folded, chain.synth_folded,
+                      torch.randn((BLOCKS_PER_STEP * EARS, Y_rows, BATCH),
+                                  generator=gen, device=dev)),
+    }
+    passes = {"high": 3, "default": 1}.get(tier)
+    cases = []
+    for name, (key, w, act) in shapes.items():
+        M_, K = w.shape
+        N = act.shape[-1]
+        nb = act.numel() // (K * N)
+        fp32_ms = cuda_ms(lambda: torch.matmul(w, act), 5)
+        case = dict(case=name, a=list(w.shape), b=list(act.shape),
+                    fp32_ms=fp32_ms,
+                    fp32_bound_ms=bound((M_ * K + act.numel() + nb * M_ * N)
+                                        * 4, 2 * nb * M_ * N * K)["bound_ms"])
+        if passes:
+            A = precision.operand(w, "a", tier, key=key)
+            B = precision.operand(act, "b", tier)
+            got = precision.product(A, B)
+            plain = torch.matmul(A.float(), B.float())
+            d = (got - plain).double()
+            ref = plain.double()
+            nbytes = (A.numel() + B.numel()) * 2 + got.numel() * 4
+            flops = passes * 2 * nb * M_ * N * K
+            by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+            case.update(
+                route_tolerance_rel_rms=K * ROUTE_TOL_PER_K,
+                rel_rms=(d.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+                .item(),
+                max_rel_err=(d.abs().max() / ref.abs().max()).item(),
+                ms=cuda_ms(lambda: precision.product(A, B), 5),
+                split_ms=cuda_ms(lambda: precision.operand(act, "b", tier), 5),
+                plain_ms=cuda_ms(lambda: torch.matmul(A.float(), B.float()),
+                                 2),
+                bound_ms=max(by_bytes, by_ops) * 1e3,
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+            del A, B, got, plain, d, ref
+        cases.append(case)
+        del act
+        torch.cuda.empty_cache()
+    return cases
+
+
+def precision_child(seed: int) -> None:
+    """One tier of the precision phase, in a fresh interpreter whose
+    AIRWAVE_MATMUL_PRECISION the parent set: the accuracy gate on the paged
+    chain, the single-block chain and the ring pool; the headline 8-block
+    step in CUDA-event time with its kernels and ops from torch.profiler
+    and its relaxed products counted; the DFT products' cases
+    (tier_cases); the strict policy checked after the step. Prints one
+    line with precision_stamp() and exits 1 if a gated tier missed its
+    contract or a tier's route disagrees with its plain version."""
+    from airwave_tpu_torch.device import precision_stamp
+    from airwave_tpu_torch.ops import fftmm, precision
+    from airwave_tpu_torch.tools import validate_accuracy
+
+    t0 = time.perf_counter()
+    tier = fftmm.PRECISION
+    apply_precision_policy()
+    dev = torch.device("cuda", 0)
+    contract = TIER_CONTRACT.get(tier, TIER_CONTRACT["high"])
+    gates = {}
+    for path, argv in PRECISION_GATES:
+        result = validate_accuracy.validate(
+            [*argv, "--contract", str(contract), "--device", str(dev)])
+        gates[path] = {"rel_rms": result["value"], "pass": result["pass"]}
+    with torch.inference_mode():
+        chain, state, x = headline_chain(seed, dev)
+
+        def one_step():
+            nonlocal state
+            state, _ = chain(state, x)
+
+        one_step()
+        precision.reset_launch_count()
+        mk.reset_launch_count()
+        one_step()
+        torch.cuda.synchronize()
+        products = precision.launch_count()
+        macs = mk.launch_count("mac_kmajor_pages")
+        step_ms = cuda_ms(one_step, 10)
+        profiled_ms, kernels, ops = device_breakdown(one_step)
+        strict = precision_is_strict()
+        del state, x
+        torch.cuda.empty_cache()
+        cases = tier_cases(chain, tier, dev, seed)
+    phase("precision", tier=tier, card=card(), contract=contract,
+          gated=tier in TIER_CONTRACT, gates=gates,
+          headline_step_ms=step_ms, headline_step_profiled_ms=profiled_ms,
+          relaxed_products_per_step=products, mac_launches_per_step=macs,
+          strict_policy_after_step=strict, cases=cases, top_kernels=kernels,
+          top_ops=ops, seconds=time.perf_counter() - t0, **precision_stamp())
+    failures = []
+    if tier in TIER_CONTRACT:
+        failures += [f"{path} rel-RMS {g['rel_rms']} > {contract}"
+                     for path, g in gates.items() if not g["pass"]]
+    if (products > 0) != (tier != "highest"):
+        failures.append(f"{products} relaxed products a step at {tier}")
+    if macs != 1:
+        failures.append(f"{macs} MAC launches a step")
+    if not strict:
+        failures.append("the strict fp32 policy did not survive the step")
+    failures += [f"{c['case']} route rel-RMS {c['rel_rms']} > "
+                 f"{c['route_tolerance_rel_rms']}"
+                 for c in cases
+                 if "rel_rms" in c and c["rel_rms"] > c["route_tolerance_rel_rms"]]
+    if failures:
+        print(f"chip_smoke: precision {tier}: {failures}", file=sys.stderr)
+        sys.exit(1)
 
 
 def hrir_wav(seed: int, directory: str, taps: int = HRIR_TAPS) -> wavio.WAVData:
@@ -4004,7 +4200,12 @@ def main() -> None:
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel phase (and the baseline "
                              "rounds); print no result line")
+    parser.add_argument("--precision-child", action="store_true",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.precision_child:
+        precision_child(args.seed)
+        return
     others = dict(label_source.split("=", 1) for label_source in args.baseline)
     others = {label: (source, ()) for label, source in others.items()}
     if args.split:
@@ -4029,6 +4230,7 @@ def main() -> None:
         return
     launches = bake_phase(rng, dev)
     peaks = {"bake": timing_phase(args.seed, dev, smi)}
+    precision_phase(args.seed)
     with tempfile.TemporaryDirectory() as tmp:
         wav = hrir_wav(args.seed, tmp)
     for label, M in (("pool", 1), ("pool_paged", BLOCKS_PER_STEP)):

@@ -916,3 +916,67 @@ def test_validation_ops_on_card_match_cpu_and_oracle(cuda_device):
     np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=0,
                                atol=1e-6)
     np.testing.assert_allclose(card.cpu().numpy(), host, rtol=0, atol=2e-5)
+
+
+# --- The precision tiers (ops/precision) -------------------------------------
+
+
+@pytest.mark.parametrize("tier", ["high", "default"])
+@pytest.mark.parametrize("a_shape,b_shape", [
+    ((1026, 512), (512, 16384)),       # the paged analysis, 2 lanes' worth
+    ((640, 1040), (4, 1040, 2048)),    # the folded paged synthesis
+])
+def test_tier_route_matches_plain(cuda_device, tier, a_shape, b_shape):
+    """The tier's route (bf16 operands, fp32 accumulation and output on the
+    tensor cores) against its plain version, the same split operands in
+    fp32: one launch, within K * 2^-29 rel-RMS for one pass's depth K (the
+    tensor cores truncate each k-step's sum into the fp32 accumulator, so
+    the two differ by about K * 2^-30: 1.04e-6 at K=1040 here)."""
+    from airwave_tpu_torch.ops import precision
+
+    rng = np.random.default_rng(sum(a_shape) + sum(b_shape))
+    a = torch.tensor(rng.standard_normal(a_shape), dtype=torch.float32,
+                     device=cuda_device)
+    b = torch.tensor(rng.standard_normal(b_shape), dtype=torch.float32,
+                     device=cuda_device)
+    A, B = precision.operand(a, "a", tier), precision.operand(b, "b", tier)
+    precision.reset_launch_count()
+    got = precision.product(A, B)
+    torch.cuda.synchronize()
+    assert precision.launch_count() == 1
+    assert got.dtype == torch.float32
+    plain = torch.matmul(A.float(), B.float())
+    tol = a_shape[1] * 2.0 ** -29
+    assert rel_rms(got.cpu().numpy(), plain.cpu().numpy()) <= tol
+    bound = 1e-5 if tier == "high" else 1e-2
+    exact = (a.double() @ b.double()).cpu().numpy()
+    assert rel_rms(got.cpu().numpy(), exact) <= bound
+
+
+def test_paged_chain_tiers_against_oracle(cuda_device, monkeypatch):
+    """The paged chain (tools/validate_accuracy --blocks-per-step 8) on the
+    card at each tier, set on the module constants the sites read: high
+    within 1e-4 of the port's float64 oracles and above highest's error,
+    one bf16 pass over 1e-4; relaxed products ran, and the process-wide
+    strict fp32 policy still holds after them."""
+    from airwave_tpu_torch.device import precision_is_strict
+    from airwave_tpu_torch.ops import eq_block, fftmm, precision, upols
+    from airwave_tpu_torch.tools import validate_accuracy
+
+    errors, products = {}, {}
+    for tier in ("highest", "high", "default"):
+        with monkeypatch.context() as m:
+            for module in (fftmm, upols, eq_block):
+                m.setattr(module, "PRECISION", tier)
+            m.setattr(fftmm, "DFT_PRECISION", tier)
+            precision.reset_launch_count()
+            result = validate_accuracy.validate(
+                ["--blocks-per-step", "8", "--blocks", "16",
+                 "--device", str(cuda_device)])
+            products[tier] = precision.launch_count()
+        errors[tier] = result["value"]
+    assert errors["highest"] <= 1e-5, errors
+    assert errors["highest"] < errors["high"] <= 1e-4, errors
+    assert errors["default"] > 1e-4, errors
+    assert products["highest"] == 0 and products["high"] > 0, products
+    assert precision_is_strict()
