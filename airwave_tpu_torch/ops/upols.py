@@ -210,11 +210,13 @@ def make_conv_state_paged(batch: int, num_speakers: int, partition_count: int,
 
 def conv_reset(state: ConvState,
                stream_mask: "torch.Tensor | None" = None) -> ConvState:
-    """Zero conv history; with a [B] bool mask only the masked streams."""
+    """Zero conv history; with a [B] bool mask only the masked streams,
+    written in place into the state passed in (as conv_step writes it): a
+    pool at capacity has no room for a second delay line."""
     if stream_mask is None:
         return ConvState(fdl=torch.zeros_like(state.fdl), write_pos=0)
     m = stream_mask.to(torch.bool)
-    return ConvState(fdl=state.fdl.masked_fill(m, 0.0),
+    return ConvState(fdl=state.fdl.masked_fill_(m, 0.0),
                      write_pos=state.write_pos)
 
 
@@ -222,13 +224,13 @@ def conv_reset_paged(state: PagedConvState,
                      stream_mask: "torch.Tensor | None" = None
                      ) -> PagedConvState:
     """Zero paged conv history; with a [B] bool mask only the masked
-    streams (a zeroed lane is rotation-invariant)."""
+    streams (a zeroed lane is rotation-invariant), in place as conv_reset."""
     if stream_mask is None:
         return PagedConvState(
             pages=tuple(torch.zeros_like(pg) for pg in state.pages))
     m = stream_mask.to(torch.bool)
     return PagedConvState(
-        pages=tuple(pg.masked_fill(m, 0.0) for pg in state.pages))
+        pages=tuple(pg.masked_fill_(m, 0.0) for pg in state.pages))
 
 
 # --- Filter operands (params-derived, built once per bank) ------------------

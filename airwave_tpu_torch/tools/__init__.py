@@ -1,5 +1,9 @@
 """Offline asset tools: SOFA conversion, spatial metrics and synthesis, the
-variant generator and the pool capacity planner."""
+variant generator and the pool capacity planner; the preset dataset gate
+(validate_presets, files only) and the hot-path gate (check_hot_path); and
+the card-side tools: the accuracy gate (validate_accuracy), the device soak
+of the pool round (soak) and the serving checkpoint's cost at scale
+(checkpoint_scale)."""
 
 
 def die_quietly_on_sigpipe() -> None:

@@ -43,7 +43,9 @@ script's elapsed seconds):
      mac_kmajor_pages at B=35,910 and its neighbours 35,909 and 35,911,
      O=32 and 64, each timed in turns with its 16-column route, which it
      equals bit for bit, as are the three pages of a 5.1 and a 7.1 input,
-     R=96 and 128, at B=16384, O=32 and 64); and the serving pool's 3
+     R=96 and 128, at B=16384, O=32 and 64); and the steady-only
+     capacity pools' (mac_kmajor at B=166,023, O=4; mac_kmajor_pages at
+     B=38,821, O=32); and the serving pool's 3
      pages at its 1024 clients' width beside its 1032 lanes; and the mesh
      phase's per-shard widths (mac_kmajor at B=2048, O=4 and 8, B=1024
      with R=40 and 20, a 7.1.4 speaker shard, R=40 at B=4096, and a
@@ -225,13 +227,36 @@ script's elapsed seconds):
      their rows within 1e-5 of one process; `serve --mesh-devices 1`
      answering a client, and one card more than are visible refused with
      the JAX CLI's error;
- 26. path_checks: every MAC launch of the migration and mesh phases, and a
-     re-run of the planner's probe rounds (their lanes and the 8-lane
-     warm-up) and capacity rounds on seeded input, held against the
-     kernel's plain version on the same operands (rel-RMS at most 1e-6),
-     one case per kernel and shape: the widths only these paths give (the
-     capacity pools' lane counts, which need not be a multiple of 4, the
-     probes' and the fixtures' 4-lane pools, the shards' widths);
+ 24b. steady_capacity (after planner): each tier's plan for the same
+     24e9-byte budget with the planner phase's calibration gives
+     max_streams_steady (a pool that never swaps); a pool built at that
+     width (the planner's bank and EQ, its EQ ramp settled) is soaked for
+     10 s through tools/soak's function: its peak at most 0.85 x 24e9, the
+     steady round's estimate (fixed bytes plus per-lane bytes times the
+     lanes) over the peak at most 1.3, the soak passing; one more round on
+     the soaked carry under CheckedMacs;
+ 26. soak (after mesh): tools/soak at full width for 30 s a tier, the
+     4320-tap bank and the 10-filter EQ: the ring tier (8192 lanes) as
+     `python -m airwave_tpu_torch.tools.soak --seconds 30 --batch 8192`, a
+     child process whose JSON line carries its launches, and the paged tier
+     (16384 lanes, M=8) in process; each passes (every checksum finite,
+     drift ratio in (0.5, 2.0)), keeps its live device tensors flat from
+     the baseline call to the window's end (the bytes they requested and
+     their count; memory_allocated and max_memory_allocated recorded at
+     both) and launches its kernel once a round; then one call on the
+     soaked paged carry under CheckedMacs;
+ 27. checkpoint_scale: tools/checkpoint_scale at B=16384, M=8 into a
+     temporary directory: the pump stall (snapshot(materialize=False) and a
+     synchronize), the readback, the atomic write, the load into a fresh
+     pool and the restore, each timed; the round trip bit for bit;
+ 28. path_checks: every MAC launch of the migration and mesh phases, the
+     checked calls of the soak and steady_capacity phases, and a re-run of
+     the planner's probe rounds (their lanes and the 8-lane warm-up) and
+     capacity rounds on seeded input, held against the kernel's plain
+     version on the same operands (rel-RMS at most 1e-6), one case per
+     kernel and shape: the widths only these paths give (the capacity
+     pools' lane counts, which need not be a multiple of 4, the probes' and
+     the fixtures' 4-lane pools, the shards' widths);
 then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Needs no network; imports no jax.
@@ -242,6 +267,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import gc
 import hashlib
 import io
 import json
@@ -285,6 +311,8 @@ from airwave_tpu_torch.shell.presentation import present_status
 from airwave_tpu_torch.shell.serve import RenderServer
 from airwave_tpu_torch.shell.wire_client import (_LEN, _read_exact,
                                                  render_via_server)
+from airwave_tpu_torch.tools import checkpoint_scale
+from airwave_tpu_torch.tools import soak as soak_tool
 from airwave_tpu_torch.utils import checkpoint, memory_planner
 from airwave_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                 load_pool_snapshot)
@@ -391,6 +419,9 @@ PLANNER_HBM = 24e9          # the capacity pools' device-memory budget
 CAPACITY_LANES = {1: 150_129, BLOCKS_PER_STEP: 35_910}
 CAPACITY_PAGED_WIDTHS = tuple(CAPACITY_LANES[BLOCKS_PER_STEP] + d
                               for d in (-1, 0, 1))
+# The steady_capacity phase's pools (max_streams_steady at the same budget,
+# which also moves with the calibration), as kernel cases: B % 4 = 3 and 1.
+STEADY_LANES = {1: 166_023, BLOCKS_PER_STEP: 38_821}
 RENDER_FILES, RENDER_SECONDS = 16, 30
 # The mesh phase: virtual shards of cuda:0 (distinct cards where visible).
 MESH_SHARDS = 4             # the bake's and the pools' stream shards
@@ -404,6 +435,15 @@ SPEAKER_LANES = 8192
 SPEAKER_STEPS = 3
 MULTIHOST_LANES = 8192      # the two gloo processes' global batch
 MESH_SERVE_FRAMES = 4 * BLOCK + 77
+# The soak phase (tools/soak): each tier at its pool width for this window
+# (the tool's default is 300 s), in calls of the tool's default 256 blocks.
+SOAK_SECONDS = 30
+SOAK_BLOCKS_PER_CALL = 256
+# The steady_capacity phase: each tier's pool at the planner's
+# max_streams_steady for PLANNER_HBM, soaked for this window in calls of
+# this many blocks (a ring round at ~166k lanes is ~20x the 8192-lane one).
+STEADY_SOAK_SECONDS = 10
+STEADY_BLOCKS_PER_CALL = 16
 
 
 _T0 = time.perf_counter()
@@ -669,9 +709,10 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
         return {"builds": fields} if fields else {}
 
     # The bake, the ring pool, the serving ring pool, the render CLI's graph
-    # path (one lane per input file), the planner's ring capacity pool.
+    # path (one lane per input file), the planner's ring capacity pool and
+    # its steady-only capacity pool.
     for B in (BATCH, POOL_LANES[1], SERVE_LANES, RENDER_FILES,
-              CAPACITY_LANES[1]):
+              CAPACITY_LANES[1], STEADY_LANES[1]):
         # R = S * P2 * 2 with P2 = 10 (9 partitions + 1), O = E * 2.
         fdl, h = tensor((Kp, 40, B)), tensor((Kp, EARS * 2, 40))
         measure("mac_kmajor", f"single_block K={Kp} R=40 O=4 B={B}",
@@ -795,7 +836,8 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
         torch.cuda.empty_cache()
     n, steady = 3, M * EARS * 2
     for R, O, B in ([(SPEAKERS * 2 * M, steady, b)
-                     for b in CAPACITY_PAGED_WIDTHS]
+                     for b in (*CAPACITY_PAGED_WIDTHS,
+                               STEADY_LANES[BLOCKS_PER_STEP])]
                     + [(SPEAKERS * 2 * M, 2 * steady, b)
                        for b in (BATCH, *CAPACITY_PAGED_WIDTHS)]
                     + [(speakers * 2 * M, o, BATCH) for speakers in (6, 8)
@@ -3474,9 +3516,10 @@ def planner_phase(wav, dev: torch.device, measured: dict, smi: str) -> dict:
     capacity pools' rounds run once more on seeded input under CheckedMacs,
     so every MAC width the phase launches is held against the plain
     version; those re-runs are not the path's launches. Returns the
-    phase's launches and the checked cases."""
+    phase's launches, the checked cases and each tier's calibration at the
+    larger probe (by blocks_per_step)."""
     mk.reset_launch_count()
-    tiers = {}
+    tiers, calibrations = {}, {}
     checked = CheckedMacs("planner")
     for M in (1, BLOCKS_PER_STEP):
         cals = {}
@@ -3490,6 +3533,7 @@ def planner_phase(wav, dev: torch.device, measured: dict, smi: str) -> dict:
                             pool, kind, n, blocks=seeded_blocks(pool, n, dev))
             del pool
         small, large = (cals[p] for p in PLANNER_PROBES)
+        calibrations[M] = large
         spread = {kind: small["rounds"][kind]["per_lane_bytes"]
                   / large["rounds"][kind]["per_lane_bytes"] - 1.0
                   for kind in large["rounds"]}
@@ -3569,7 +3613,7 @@ def planner_phase(wav, dev: torch.device, measured: dict, smi: str) -> dict:
                                  f"{t['estimate_over_peak']} > 1.3")
     if not (cli["calibrated"] is True and abs(cli_lane_ratio - 1) <= 0.05):
         raise AssertionError(f"planner: plan_capacity --calibrate gave {cli}")
-    return launched, checked.cases()
+    return launched, checked.cases(), calibrations
 
 
 def baseline_rounds_phase(wav, dev: torch.device, baselines: dict,
@@ -4182,6 +4226,199 @@ def mesh_phase(wavs, files: ServeFiles, dev: torch.device,
     return launches, checks
 
 
+def free_device_memory() -> None:
+    """Drop what earlier phases left for the collector and return the
+    cached blocks, so a phase's peak is its own."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def settle_rounds(M: int) -> int:
+    """Rounds of soak_tool.settle_eq at tier M (one MAC launch each)."""
+    return -(-EQ_RAMP // (M * BLOCK)) + 1
+
+
+def soak_launches(result: dict, M: int) -> dict:
+    """The launches a soak of `result` makes, the pool's settle rounds
+    included: one of the tier's kernel per round."""
+    calls = result["calls"] + 2  # the warm-up and the baseline call too
+    used = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+    rounds = settle_rounds(M) + calls * result["blocks_per_call"] // M
+    return {name: rounds if name == used else 0 for name in KERNELS}
+
+
+def check_soak(label: str, result: dict, M: int, launches=None) -> None:
+    """A soak result passed (finite, no drift, no growth of live device
+    tensors) and, where `launches` are given, launched the tier's kernel
+    once per round."""
+    if not result.get("pass"):
+        raise AssertionError(f"{label}: soak failed: {result}")
+    if not 0.5 < result["output_drift_ratio"] < 2.0:
+        raise AssertionError(f"{label}: drift {result['output_drift_ratio']}")
+    for key in ("device_requested_bytes", "device_live_allocations"):
+        if result[f"{key}_end"] > result[f"{key}_baseline"]:
+            raise AssertionError(f"{label}: {key} grew: {result}")
+    expected = soak_launches(result, M)
+    if launches is not None and launches != expected:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expected} (one per round)")
+
+
+def soak_phase(dev: torch.device, smi: str) -> tuple:
+    """tools/soak on both tiers at full width: the ring tier (8192 lanes)
+    through the tool's CLI as a child process (`python -m
+    airwave_tpu_torch.tools.soak --seconds SOAK_SECONDS --batch 8192`), the
+    paged tier (16384 lanes, M=8) in process through soak_tool.soak, each
+    for SOAK_SECONDS on the 4320-tap bank and the 10-filter EQ. Each must
+    pass (every checksum finite, drift ratio in (0.5, 2.0)), keep its live
+    device tensors flat from the baseline call to the window's end and launch
+    its kernel once per round. Then one more call on the soaked paged carry
+    under CheckedMacs. Returns (launches by path, the checked cases)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "airwave_tpu_torch.tools.soak", "--seconds",
+         str(SOAK_SECONDS), "--batch", str(POOL_LANES[1])],
+        cwd=REPO, env=child_env(), capture_output=True, text=True,
+        timeout=SOAK_SECONDS + 300)
+    if proc.returncode != 0:
+        raise AssertionError(f"soak (ring) exited {proc.returncode}: "
+                             f"{proc.stdout[-1500:]}{proc.stderr[-1500:]}")
+    ring = json.loads(proc.stdout.splitlines()[-1])
+    ring_seconds = time.perf_counter() - t0
+    check_soak("soak (ring)", ring, 1, ring["launches"])
+
+    t1 = time.perf_counter()
+    M = BLOCKS_PER_STEP
+    mk.reset_launch_count()
+    free_device_memory()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pool = soak_tool.build_pool(POOL_LANES[M], blocks_per_step=M, device=dev)
+    x = soak_tool.device_input(pool)
+    paged = soak_tool.soak(pool, x, SOAK_SECONDS, SOAK_BLOCKS_PER_CALL)
+    launches = {name: mk.launch_count(name) for name in KERNELS}
+    paged_seconds = time.perf_counter() - t1
+    paged_peak = torch.cuda.max_memory_allocated() - base
+    check_soak("soak (paged)", paged, M, launches)
+    with CheckedMacs("soak_paged") as checked:
+        acc = soak_tool.make_call(pool, x, SOAK_BLOCKS_PER_CALL)()
+        finite = bool(torch.isfinite(acc).all())
+    del pool, x, acc
+    torch.cuda.empty_cache()
+    phase("soak", card=smi, seconds=time.perf_counter() - t0,
+          window_seconds=SOAK_SECONDS, ring=ring, ring_seconds=ring_seconds,
+          paged=paged, paged_launches=launches, paged_seconds=paged_seconds,
+          paged_peak_bytes=paged_peak,
+          checked_call_finite=finite, checked_launches=checked.launches)
+    if not finite:
+        raise AssertionError("soak (paged): the checked call is not finite")
+    return ({"soak_ring": ring["launches"], "soak_paged": launches},
+            checked.cases())
+
+
+def steady_capacity_phase(wav, dev: torch.device, calibrations: dict,
+                          smi: str) -> tuple:
+    """The planner's steady-only capacity on the card: for each tier, the
+    plan for PLANNER_HBM with the planner phase's calibration
+    (calibrations[M]) gives max_streams_steady; a pool that never swaps is
+    built at that width (make_pool, the calibration's bank and EQ), its EQ
+    ramp settled and soaked for STEADY_SOAK_SECONDS through soak_tool.soak.
+    Its peak (device bytes above the allocation before it was built) must be
+    at most 0.85 * PLANNER_HBM, and the steady estimate (the steady round's
+    fixed bytes plus its per-lane bytes times the lanes) over the peak at
+    most 1.3: the limits the planner phase holds max_streams to. Then one
+    round on the soaked carry under CheckedMacs. Returns (the path's
+    launches, the checked cases)."""
+    t0 = time.perf_counter()
+    mk.reset_launch_count()
+    checked = CheckedMacs("steady_capacity")
+    tiers = {}
+    for M in (1, BLOCKS_PER_STEP):
+        cal = calibrations[M]
+        plan = memory_planner.pool_capacity(
+            SPEAKERS, HRIR_TAPS, BLOCK, lookahead=M, hbm_bytes=PLANNER_HBM,
+            calibration=cal)
+        n = plan["max_streams_steady"]
+        steady = cal["rounds"]["steady"]
+        estimate = steady["fixed_bytes"] + steady["per_lane_bytes"] * n
+        free_device_memory()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        pool = make_pool(wav, n, M, dev, bench_eq_definition())
+        soak_tool.settle_eq(pool)
+        x = soak_tool.device_input(pool)
+        result = soak_tool.soak(pool, x, STEADY_SOAK_SECONDS,
+                                STEADY_BLOCKS_PER_CALL)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        seconds = time.perf_counter() - t1
+        with checked:
+            acc = soak_tool.make_call(pool, x, M)()
+            finite = bool(torch.isfinite(acc).all())
+        del pool, x, acc
+        torch.cuda.empty_cache()
+        tiers["ring" if M == 1 else "paged"] = dict(
+            max_streams_steady=n, max_streams=plan["max_streams"],
+            steady_per_lane_bytes=steady["per_lane_bytes"],
+            steady_fixed_bytes=steady["fixed_bytes"], peak_bytes=peak,
+            steady_estimate_bytes=estimate, estimate_over_peak=estimate / peak,
+            peak_over_budget=peak / PLANNER_HBM, soak=result,
+            checked_round_finite=finite, seconds=seconds)
+    launched = {name: mk.launch_count(name) - checked.launches[name]
+                for name in KERNELS}
+    phase("steady_capacity", card=smi, seconds=time.perf_counter() - t0,
+          hbm_budget_bytes=PLANNER_HBM, window_seconds=STEADY_SOAK_SECONDS,
+          launches=launched, checked_launches=checked.launches, **tiers)
+    for tier, t in tiers.items():
+        M = 1 if tier == "ring" else BLOCKS_PER_STEP
+        if not t["peak_bytes"] <= 0.85 * PLANNER_HBM:
+            raise AssertionError(f"steady_capacity ({tier}): peak "
+                                 f"{t['peak_bytes']} over 0.85 x {PLANNER_HBM}")
+        if not t["estimate_over_peak"] <= 1.3:
+            raise AssertionError(f"steady_capacity ({tier}): estimate over "
+                                 f"peak {t['estimate_over_peak']} > 1.3")
+        if not t["checked_round_finite"]:
+            raise AssertionError(f"steady_capacity ({tier}): not finite")
+        check_soak(f"steady_capacity ({tier})", t["soak"], M)
+    expected = {name: sum(soak_launches(t["soak"], 1 if tier == "ring"
+                                        else BLOCKS_PER_STEP)[name]
+                          for tier, t in tiers.items()) for name in KERNELS}
+    if launched != expected:
+        raise AssertionError(f"steady_capacity: launches {launched}, "
+                             f"expected {expected}")
+    return launched, checked.cases()
+
+
+def checkpoint_scale_phase(dev: torch.device, smi: str) -> dict:
+    """tools/checkpoint_scale at B=16384, M=8 (the 4320-tap bank) into a
+    temporary directory: the pump stall (snapshot(materialize=False) and a
+    synchronize), the readback, the atomic write, the load into a fresh
+    pool and the restore, each timed, and the round trip bit for bit.
+    Returns the path's launches (its one warm round)."""
+    t0 = time.perf_counter()
+    mk.reset_launch_count()
+    free_device_memory()
+    with tempfile.TemporaryDirectory() as tmp:
+        result = checkpoint_scale.measure(
+            batch=BATCH, blocks_per_step=BLOCKS_PER_STEP,
+            out=os.path.join(tmp, "pool"), device=dev)
+        left = os.listdir(tmp)
+    launches = {name: mk.launch_count(name) for name in KERNELS}
+    torch.cuda.empty_cache()
+    phase("checkpoint_scale", card=smi, seconds=time.perf_counter() - t0,
+          **result, launches=launches)
+    if not result["roundtrip_exact"]:
+        raise AssertionError("checkpoint_scale: the round trip is not exact")
+    if left:
+        raise AssertionError(f"checkpoint_scale: files left behind: {left}")
+    if launches != {"mac_kmajor": 0, "mac_kmajor_pages": 1}:
+        raise AssertionError(f"checkpoint_scale: launches {launches}, "
+                             f"expected one mac_kmajor_pages (the warm round)")
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4274,12 +4511,19 @@ def main() -> None:
     launches.update(feeder_phase(wav, dev, args.seed, smi))
     with CheckedMacs("migration") as checked:
         launches["migration"] = migration_phase(wav, dev, rng, smi)
-    launches["planner"], planner_checks = planner_phase(wav, dev, peaks, smi)
+    launches["planner"], planner_checks, calibrations = planner_phase(
+        wav, dev, peaks, smi)
+    launches["steady_capacity"], steady_checks = steady_capacity_phase(
+        wav, dev, calibrations, smi)
     with tempfile.TemporaryDirectory() as tmp:
         mesh_launches, mesh_checks = mesh_phase(
             [wav, swap[0], short, short2, swap[1]],
             ServeFiles(tmp, wav, args.seed), dev, rng, smi)
-    path_checks = checked.cases() + planner_checks + mesh_checks
+    soak_launches_by_path, soak_checks = soak_phase(dev, smi)
+    launches.update(soak_launches_by_path)
+    launches["checkpoint_scale"] = checkpoint_scale_phase(dev, smi)
+    path_checks = (checked.cases() + planner_checks + steady_checks
+                   + mesh_checks + soak_checks)
     phase("path_checks", tolerance_rel_rms=KERNEL_TOL, cases=path_checks)
     silent = [c["case"] for c in path_checks
               if not c["nonzero_reference_launches"]]
@@ -4294,7 +4538,8 @@ def main() -> None:
              **{path: launches[path] for path in (
                  "serve_ring", "serve_paged", "render_graph",
                  "render_throughput", "feeder_single_block", "feeder_paged",
-                 "migration", "planner")},
+                 "migration", "planner", "steady_capacity", "soak_ring",
+                 "soak_paged", "checkpoint_scale")},
              **{path: {name: launches[path][name]["total"]
                        for name in KERNELS}
                 for path in ("demo", "demo_cli")},

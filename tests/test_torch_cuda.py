@@ -980,3 +980,37 @@ def test_paged_chain_tiers_against_oracle(cuda_device, monkeypatch):
     assert errors["default"] > 1e-4, errors
     assert products["highest"] == 0 and products["high"] > 0, products
     assert precision_is_strict()
+
+
+@pytest.mark.parametrize("blocks_per_step", [1, 8])
+def test_soak_on_card_passes(cuda_device, blocks_per_step):
+    """tools/soak on each tier at B=1024 for 5 s: every checksum finite, no
+    drift, live device bytes flat over the window, the tier's kernel
+    launched once per round."""
+    from airwave_tpu_torch.tools import soak
+
+    pool = soak.build_pool(1024, blocks_per_step=blocks_per_step,
+                           device=cuda_device)
+    mk.reset_launch_count()
+    result = soak.soak(pool, soak.device_input(pool), 5.0, 64)
+    assert result["pass"] is True, result
+    assert result["calls"] >= 2
+    for key in ("device_requested_bytes", "device_live_allocations"):
+        assert result[f"{key}_end"] == result[f"{key}_baseline"], key
+    name = "mac_kmajor_pages" if blocks_per_step > 1 else "mac_kmajor"
+    rounds = (result["calls"] + 2) * 64 // blocks_per_step
+    assert mk.launch_count(name) == rounds
+
+
+def test_checkpoint_scale_on_card_round_trips(cuda_device, tmp_path):
+    """tools/checkpoint_scale at B=1024, M=8 on the card: the carry saved,
+    loaded and restored into a fresh pool equals the live one bit for
+    bit."""
+    from airwave_tpu_torch.tools import checkpoint_scale
+
+    result = checkpoint_scale.measure(batch=1024, blocks_per_step=8,
+                                      out=str(tmp_path / "ckpt"),
+                                      device=cuda_device)
+    assert result["roundtrip_exact"] is True, result
+    assert result["carry_gib"] > 0.1 and result["pump_stall_ms"] > 0
+    assert list(tmp_path.iterdir()) == []

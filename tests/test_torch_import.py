@@ -64,7 +64,8 @@ def test_port_imports_and_bakes_with_jax_blocked():
                      "tools.generate", "tools.plan_capacity",
                      "utils.memory_planner", "parallel.mesh",
                      "parallel.multihost", "ops.biquad_scan", "ops.resample",
-                     "__main__"):
+                     "tools.soak", "tools.checkpoint_scale",
+                     "tools.validate_presets", "__main__"):
             assert "airwave_tpu_torch." + name in names, name
 
         from airwave_tpu_torch.models.bake import bake
@@ -109,10 +110,12 @@ def test_cli_help_runs_with_jax_blocked():
 
 def test_tools_help_runs_with_jax_blocked():
     """`python -m airwave_tpu_torch.tools.{convert,spatial,generate,
-    plan_capacity} --help` run without jax, and plan_capacity plans."""
+    plan_capacity,soak,checkpoint_scale,validate_presets} --help` run
+    without jax, and plan_capacity plans."""
     code = BLOCK_JAX + textwrap.dedent("""
         import contextlib, io, json, runpy
-        for tool in ("convert", "spatial", "generate", "plan_capacity"):
+        for tool in ("convert", "spatial", "generate", "plan_capacity",
+                     "soak", "checkpoint_scale", "validate_presets"):
             sys.argv = [tool, "--help"]
             out = io.StringIO()
             with contextlib.redirect_stdout(out):

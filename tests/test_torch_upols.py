@@ -169,6 +169,26 @@ def test_conv_resets_match_jax():
     assert not any(pg.any() for pg in tupols.conv_reset_paged(pt).pages)
 
 
+def test_masked_conv_resets_write_in_place():
+    """A masked reset (a pool's attach) zeroes the lanes in the delay line
+    it is given: no second copy of the carry, whose transient doubled a
+    capacity pool's peak on the card."""
+    rng = np.random.default_rng(10)
+    mask = torch.tensor([False, True, False, True])
+    fdl = torch.tensor(rng.standard_normal((72, 2, 3, 2, 4)), dtype=torch.float32)
+    want = fdl.clone()
+    want[..., 1::2] = 0
+    st = tupols.conv_reset(tupols.ConvState(fdl, 1), mask)
+    assert st.fdl.data_ptr() == fdl.data_ptr() and st.write_pos == 1
+    assert torch.equal(fdl, want)
+    pages = tuple(torch.tensor(rng.standard_normal((72, 2, 2, 4, 4)),
+                               dtype=torch.float32) for _ in range(2))
+    pt = tupols.conv_reset_paged(tupols.PagedConvState(pages), mask)
+    for got, page in zip(pt.pages, pages):
+        assert got.data_ptr() == page.data_ptr()
+        assert not page[..., 1::2].any() and page[..., 0::2].all()
+
+
 def test_state_builders_match_jax():
     st = tupols.make_conv_state(3, 2, 9, 64, device="cpu")
     sj = jupols.make_conv_state(3, 2, 9, 64)
