@@ -848,6 +848,20 @@ extern "C" int airwave_mac_kmajor_pages(const float* const* pages, int n,
   return static_cast<int>(err);
 }
 
+// The launch floor: a kernel that does nothing, launched as the caller asks
+// (chip_smoke.py times it at mac_kmajor's <<<520, 256>>> beside the small
+// batches' rows, whose time is the host's launch). No TPU kernel; no path
+// of the package launches it.
+__global__ void airwave_empty_kernel() {}
+
+extern "C" int airwave_empty_launch(int grid, int block, int device,
+                                    void* stream) {
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
+  airwave_empty_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" const char* airwave_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

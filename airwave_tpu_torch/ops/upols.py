@@ -210,14 +210,17 @@ def make_conv_state_paged(batch: int, num_speakers: int, partition_count: int,
 
 def conv_reset(state: ConvState,
                stream_mask: "torch.Tensor | None" = None) -> ConvState:
-    """Zero conv history; with a [B] bool mask only the masked streams,
-    written in place into the state passed in (as conv_step writes it): a
-    pool at capacity has no room for a second delay line."""
-    if stream_mask is None:
-        return ConvState(fdl=torch.zeros_like(state.fdl), write_pos=0)
-    m = stream_mask.to(torch.bool)
-    return ConvState(fdl=state.fdl.masked_fill_(m, 0.0),
-                     write_pos=state.write_pos)
+    """Zero conv history (write_pos to 0); with a [B] bool mask only the
+    masked streams (write_pos kept). Either way written in place into the
+    delay line passed in (as conv_step writes it): a pool at capacity has no
+    room for a second delay line. A caller that must keep the old history
+    copies it first (StreamPool.snapshot does)."""
+    with torch.inference_mode():  # the carry may be an inference tensor
+        if stream_mask is None:
+            return ConvState(fdl=state.fdl.zero_(), write_pos=0)
+        m = stream_mask.to(torch.bool)
+        return ConvState(fdl=state.fdl.masked_fill_(m, 0.0),
+                         write_pos=state.write_pos)
 
 
 def conv_reset_paged(state: PagedConvState,
@@ -225,12 +228,13 @@ def conv_reset_paged(state: PagedConvState,
                      ) -> PagedConvState:
     """Zero paged conv history; with a [B] bool mask only the masked
     streams (a zeroed lane is rotation-invariant), in place as conv_reset."""
-    if stream_mask is None:
+    with torch.inference_mode():
+        if stream_mask is None:
+            return PagedConvState(
+                pages=tuple(pg.zero_() for pg in state.pages))
+        m = stream_mask.to(torch.bool)
         return PagedConvState(
-            pages=tuple(torch.zeros_like(pg) for pg in state.pages))
-    m = stream_mask.to(torch.bool)
-    return PagedConvState(
-        pages=tuple(pg.masked_fill_(m, 0.0) for pg in state.pages))
+            pages=tuple(pg.masked_fill_(m, 0.0) for pg in state.pages))
 
 
 # --- Filter operands (params-derived, built once per bank) ------------------

@@ -940,8 +940,9 @@ class StreamPool:
         untouched.
 
         A longer bank, or crossfade=False, resets the group's history; its
-        carry is reallocated when its partition count changes (a zeroed
-        lane is rotation-invariant, so no lane owes alignment work)."""
+        carry is zeroed in place, or reallocated when its partition count
+        changes (a zeroed lane is rotation-invariant, so no lane owes
+        alignment work)."""
         self._check_renderer_lookahead(renderer)
         g = self._swap_group(renderer, group)
         # Deferred attach zeroing lands first: a pending lane's garbage must
@@ -1375,11 +1376,14 @@ class StreamPool:
         sharded pool every shard runs in every round, on its device and
         stream, from and into its slice of the staging buffers.
 
-        On a failure the pool rebuilds a fresh state (blocks harvested for
-        in-flight rounds are lost and read as underflow zeros), counts it
-        in render_errors and re-raises."""
+        On a failure the pool rebuilds a fresh state, counts it in
+        render_errors and re-raises. The steps harvested for the rounds in
+        flight are lost: each of their lanes is handed one step of silence
+        in their place, so a stream's output keeps its length (a server
+        waiting for a stream's last frames is not left waiting)."""
         rounds = 0
         pending = None  # (indices, host slot) awaiting delivery
+        harvested = None  # the lanes of the round being built
         inflight = np.zeros(self.max_streams, bool)
         M = self.blocks_per_step
         step_frames = self.step_frames
@@ -1398,6 +1402,7 @@ class StreamPool:
                 k = len(indices)
                 if k == 0:
                     break
+                harvested = indices
                 self._roll_rejoining(indices)
                 up.arrays[1][:k] = self._local_lane[indices]
                 eq_states, p_from, p_to, crossfading = self._begin_eq_round()
@@ -1446,9 +1451,10 @@ class StreamPool:
                 if pending is not None:
                     self._deliver(*pending)
                     inflight[pending[0]] = False
+                    pending = None
                     if on_deliver is not None:
                         on_deliver()
-                pending = (indices, down)
+                pending, harvested = (indices, down), None
                 inflight[indices] = True
                 self.variant_rounds[variant] += 1
                 self.rounds += 1
@@ -1467,6 +1473,13 @@ class StreamPool:
             self._debt[:] = 0
             self._reset_pending[:] = False  # the fresh state is already zero
             self._clear_xfade()  # a zeroed history has nothing to blend
+            lost = [] if pending is None else [pending[0]]
+            if harvested is not None:
+                lost.append(harvested)
+            if lost:
+                lanes = np.concatenate(lost)
+                self._queue_out(lanes, np.zeros(
+                    (len(lanes), EARS, step_frames), np.float32))
             self.render_errors += 1
             raise
         return rounds
@@ -1560,7 +1573,11 @@ class StreamPool:
         scatter is the fast path; an unlocked pull racing the round can
         shrink a ring, and the affected blocks then stash in order."""
         slot.wait()
-        blocks = slot.arrays[0][: len(indices)]
+        self._queue_out(indices, slot.arrays[0][: len(indices)])
+
+    def _queue_out(self, indices: np.ndarray, blocks: np.ndarray) -> None:
+        """Hand one step per lane (blocks [k, 2, step]) to the output
+        rings, stashing in order what does not fit."""
         if not self._pending_out:
             try:
                 self._out.scatter(indices, blocks)

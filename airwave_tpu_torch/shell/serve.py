@@ -453,8 +453,10 @@ class RenderServer:
             for s in expired:
                 self._orphans.pop(s, None)
                 self._lane_tokens.pop(s, None)
-                self.pool.detach(s)
+                # Counted first: a reader that sees the lane detached (the
+                # pool's attached set is read without the lock) sees it.
                 self.expired_orphans += 1
+                self.pool.detach(s)
             if not self._orphans:
                 self._orphan_aliases.clear()  # grace over: aliases done
 

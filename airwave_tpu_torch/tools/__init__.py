@@ -2,8 +2,10 @@
 variant generator and the pool capacity planner; the preset dataset gate
 (validate_presets, files only) and the hot-path gate (check_hot_path); and
 the card-side tools: the accuracy gate (validate_accuracy), the device soak
-of the pool round (soak) and the serving checkpoint's cost at scale
-(checkpoint_scale)."""
+of the pool round (soak), the serving checkpoint's cost at scale
+(checkpoint_scale), the per-kernel profile of the bake chain and the pool
+round (profile_chain), the wall-clock serving soak of a live server under
+churn (serve_soak) and the wire layer's scale harness (serve_scale)."""
 
 
 def die_quietly_on_sigpipe() -> None:

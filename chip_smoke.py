@@ -51,8 +51,12 @@ script's elapsed seconds):
      with R=40 and 20, a 7.1.4 speaker shard, R=40 at B=4096, and a
      stereo speaker shard of the two gloo processes, R=20 at B=4096;
      mac_kmajor_pages at B=4096, O=32 and 64); the B=1 and B=16 rows also
-     give the kernel's device time from torch.profiler
-     (profiled_device_ms) beside their CUDA-event time;
+     give the kernel's device time per launch from a trace of 50 launches
+     (profiled_device_ms; tools/profile_chain.profile, after a warm-up
+     call) beside their CUDA-event time, and the launch floor beside them:
+     an empty kernel of the same library at <<<520, 256>>>, its CUDA-event
+     ms per launch and its device ms from a trace of 200 launches; each
+     trace must hold every launch it traced;
   4. bake: models.bake.bake at full width (B=16384 streams, S=2, T=512, a
      synthetic 4320-tap HRIR bank, a 10-filter EQ) over 32 blocks with
      blocks_per_step=8 and 1; the outputs are finite and non-silent, the two
@@ -61,15 +65,16 @@ script's elapsed seconds):
      step (mac_kmajor_pages at M=8, mac_kmajor at M=1) and not the other;
   5. timing: the paged chain on device-resident input for 192 blocks, as
      bench.py:measure times the JAX chain, then one 8-block step alone in
-     CUDA-event time with its kernels from torch.profiler (for the record
-     only);
+     CUDA-event time (its kernels: the profile_chain phase, which traces
+     the same chain);
   5b. precision: one child interpreter per tier (AIRWAVE_MATMUL_PRECISION
      highest, high, default; the knobs are read at import) runs
      tools/validate_accuracy's gate on the paged chain (M=8), the
      single-block chain and the ring pool against the float64 oracles
      (highest held to 1e-5, high to 1e-4, default recorded), the headline
-     8-block step in CUDA-event time with torch.profiler's top kernels and
-     ops and its relaxed products counted, the strict fp32 policy checked
+     8-block step in CUDA-event time and its top kernels from a trace of 3
+     steps (traced: "not measured" unless the trace holds every MAC
+     launch), its relaxed products counted, the strict fp32 policy checked
      after it, and the two DFT products at the headline's shapes (analysis
      [1026, 512] x [512, 262144], folded synthesis [640, 1040] x [16,
      1040, 16384]): the fp32 torch.mm/matmul's ms and bound, and under a
@@ -91,8 +96,8 @@ script's elapsed seconds):
      (push_many, pump(max_rounds=1), pull_many), 64 blocks per lane per
      reading, best of 3 after two warm-up rounds; x_realtime, ms per round
      and its push/pump/pull split, peak device memory, and the CUDA-event
-     time of one saturated device round alone with its kernels from
-     torch.profiler (for the record only);
+     time of one saturated device round alone (its kernels: the
+     profile_chain phase's pool paths);
   9. pool_retarget: a 64-lane pool on the card and the same pool on the CPU
      (plain versions) fed the same ragged traffic with three EQ retargets
      and a detach and re-attach; every stream agrees within 1e-5, for both
@@ -134,8 +139,10 @@ script's elapsed seconds):
      admission and chunk latency percentiles, the server's wire-to-wire
      latency, the pool's rounds, the aggregate realtime multiple, the pump
      thread's share of the wall time, a torch.profiler trace of 40 pump
-     calls under the load (the card's and the pump thread's busy shares,
-     ms per round, the pump thread's top host ops; for the record only),
+     calls under the load after a warm-up call (the card's and the pump
+     thread's busy shares, ms per round, the pump thread's top host ops;
+     for the record only; the card's "not measured" unless the trace
+     holds every MAC launch of those calls),
      and mac_kmajor launched on the path;
  15. serve_paged: the same at --blocks-per-step 8 (mac_kmajor_pages);
  16. serve_checkpoint: on the loaded ring server a client streams half its
@@ -176,7 +183,8 @@ script's elapsed seconds):
      Neutral segment past the EQ ramp, the fade blocks and the steady Room
      segment each within 1e-5 of float64; mac_kmajor once a block, at O=8
      in the fade blocks; host ms per block, the card's ms per block and
-     busy share from torch.profiler, the realtime multiple;
+     busy share from a trace of 100 more blocks (traced), the realtime
+     multiple;
  22. feeder_single_block, feeder_paged: runtime.feeder.DeviceFeeder (two
      pinned host buffers per input shape, the copy on a stream of its own,
      an event the step waits on) over chain_step_fn at B=16384 for 24
@@ -185,8 +193,9 @@ script's elapsed seconds):
      equal fresh state: equal bit for bit, 4 sampled lanes within 1e-5 of
      float64, one mac_kmajor launch per block and one mac_kmajor_pages
      launch per step; wall ms per block or step of both loops, the pinned
-     bytes held, and from torch.profiler the copies' and the kernels'
-     streams and their overlap (for the record);
+     bytes held, and from a trace (after a warm-up call, holding every MAC
+     launch) the copies' and the kernels' streams and their overlap (for
+     the record);
  23. migration: the committed round-3 fixtures (ring and grouped) restored
      into port pools on the card and continued within 1e-5 of the
      uninterrupted render; then an 8192-lane ring pool's round-3
@@ -233,8 +242,10 @@ script's elapsed seconds):
      width (the planner's bank and EQ, its EQ ramp settled) is soaked for
      10 s through tools/soak's function: its peak at most 0.85 x 24e9, the
      steady round's estimate (fixed bytes plus per-lane bytes times the
-     lanes) over the peak at most 1.3, the soak passing; one more round on
-     the soaked carry under CheckedMacs;
+     lanes) over the peak at most 1.3, the soak passing; then a reset swap
+     (set_renderer(crossfade=False) onto the same bank: the carry zeroed in
+     place) and one round, that peak also at most 0.85 x 24e9; one more
+     round on the reset carry under CheckedMacs;
  26. soak (after mesh): tools/soak at full width for 30 s a tier, the
      4320-tap bank and the 10-filter EQ: the ring tier (8192 lanes) as
      `python -m airwave_tpu_torch.tools.soak --seconds 30 --batch 8192`, a
@@ -249,8 +260,33 @@ script's elapsed seconds):
      temporary directory: the pump stall (snapshot(materialize=False) and a
      synchronize), the readback, the atomic write, the load into a fresh
      pool and the restore, each timed; the round trip bit for bit;
+ 27b. profile_chain: tools/profile_chain at the headline bake (B=16384,
+     M=8) and both pool tiers (ring 8192 lanes, paged 16384 at M=8; the
+     saturated "_id" round), 2 traced calls of 16 blocks each under
+     torch.profiler with CUDA activity (tools/profile_chain.profile: a
+     warm-up call, the window opened by its lead kernels): the top kernels by device ms per block (the MAC kernel of
+     each path, every launch of it in the traced calls, and the bake's
+     GEMMs among them), the listed rows' sum and the CUDA-event ms per
+     block of the same calls; each warm-up call's MAC launches checked;
+ 27c. serve_soak: tools/serve_soak on the card for 45 s a tier (the tool's
+     300 s, cut) at the serve phases' width (1032 lanes, block 512): the
+     ring tier as a grouped two-profile pool (the 4320-tap bank and a
+     2000-tap one) and the paged tier (M=8) on the 4320-tap bank, under
+     tests/test_soak.py's churn (1-4 ragged clients a wave, a slow reader
+     every 3rd, an EQ retarget every 5th, a crossfaded hot-swap every 7th)
+     and its pass criteria; pump ms per round p50/p99 and live device
+     tensors after the first and the 7th wave and at the end (flat); 8
+     MAC launches a shape (with a non-zero reference) of each window and
+     of one fade round on audio after it (every group swapped, a lane of
+     each streaming) checked;
+ 27d. serve_scale: tools/serve_scale with 256 realtime loadgen clients (a
+     child process) against the in-process server on a 264-lane ring pool
+     of the script's 300-tap bank: every client complete, no server error;
+     8 of its MAC launches checked;
  28. path_checks: every MAC launch of the migration and mesh phases, the
-     checked calls of the soak and steady_capacity phases, and a re-run of
+     checked calls of the soak and steady_capacity phases, the sampled
+     launches of the profile_chain, serve_soak and serve_scale paths, and
+     a re-run of
      the planner's probe rounds (their lanes and the 8-lane warm-up) and
      capacity rounds on seeded input, held against the kernel's plain
      version on the same operands (rel-RMS at most 1e-6), one case per
@@ -311,7 +347,8 @@ from airwave_tpu_torch.shell.presentation import present_status
 from airwave_tpu_torch.shell.serve import RenderServer
 from airwave_tpu_torch.shell.wire_client import (_LEN, _read_exact,
                                                  render_via_server)
-from airwave_tpu_torch.tools import checkpoint_scale
+from airwave_tpu_torch.tools import checkpoint_scale, profile_chain
+from airwave_tpu_torch.tools import serve_scale, serve_soak
 from airwave_tpu_torch.tools import soak as soak_tool
 from airwave_tpu_torch.utils import checkpoint, memory_planner
 from airwave_tpu_torch.utils.checkpoint import (checkpoint_path,
@@ -402,7 +439,8 @@ CLI_FRAMES = 2 * 48_000
 DEMO_CLI_SECONDS = 5.0      # demo --seconds of the CLI run
 DEMO_BLOCKS = 940           # blocks pumped through the wired demo (~10 s)
 DEMO_SWAP_BLOCK = 470       # where the profile's HRIR goes Neutral -> Room
-DEMO_PROFILED_BLOCKS = 100  # blocks traced by torch.profiler after the run
+DEMO_PROFILED_BLOCKS = 100  # blocks traced (traced) after the run
+DEMO_PROFILED_CALLS = 4     # ... in calls of 25 blocks, after a warm-up call
 FEEDER_BLOCKS = 24          # single-block steps through the feeder
 FEEDER_STEPS = 6            # 8-block steps through the feeder (537 MB each)
 FEEDER_PROFILED = 6         # feeder steps traced by torch.profiler
@@ -444,6 +482,26 @@ SOAK_BLOCKS_PER_CALL = 256
 # this many blocks (a ring round at ~166k lanes is ~20x the 8192-lane one).
 STEADY_SOAK_SECONDS = 10
 STEADY_BLOCKS_PER_CALL = 16
+# The profile_chain phase: tools/profile_chain's defaults (blocks a traced
+# call, traced calls), the rows each path prints, and the MAC launches a
+# shape (with a non-zero reference) of each path's warm-up call held
+# against the plain version.
+PROFILE_BLOCKS = 16
+PROFILE_CALLS = 2
+PROFILE_TOP = 15
+PROFILE_CHECKED = 8
+PROFILE_PATHS = {   # path: (the pool's round, not the bake; M; lanes)
+    "profile_bake": (False, BLOCKS_PER_STEP, BATCH),
+    "profile_pool_ring": (True, 1, POOL_LANES[1]),
+    "profile_pool_paged": (True, BLOCKS_PER_STEP, POOL_LANES[BLOCKS_PER_STEP]),
+}
+# The serve_soak phase: each tier's window (the tool's default 300 s, cut),
+# and the MAC launches a shape (with a non-zero reference) of each window,
+# and of serve_scale's run, checked.
+SERVE_SOAK_SECONDS = 45
+SERVE_SOAK_CHECKED = 8
+SERVE_SCALE_CLIENTS = 256   # the serve_scale phase's realtime clients
+FADE_CHECK_SEED = 29        # the audio of the serve_soak phase's fade round
 
 
 _T0 = time.perf_counter()
@@ -517,53 +575,43 @@ def load_build(source: str, defines=()):
     return run
 
 
-def device_breakdown(fn, reps: int = 3, top: int = 8):
-    """Device time of fn() from torch.profiler, in ms per call over `reps`
-    calls: the total, the `top` kernels, and the `top` aten ops with their
-    input shapes (a kernel launched through ctypes, as mac_kmajor is, has
-    no aten op and shows among the kernels only)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def traced(fn, calls: int, kernel: str, count=None, top: int = 8,
+           logdir=None) -> dict:
+    """fn() under tools/profile_chain.profile (a warm-up call, then `calls`
+    calls, each synchronized inside the trace, the window opened by its
+    lead kernels): the device ms per call of every kernel in the trace and
+    its `top` kernels by name, and the device ms per launch of `kernel` (a
+    part of the kernel's name; mac_kmajor leaves out the pages kernel). The
+    trace must hold every launch of `kernel` that the traced calls made
+    (count(): its launches so far, by default mk.launch_count(kernel)),
+    else the times read "not measured", since a trace that drops kernels
+    reads low. The Chrome trace is written to `logdir` when one is given."""
+    count = count or (lambda: mk.launch_count(kernel))
+    made = []
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages(group_by_input_shape=True)
+    def call():
+        before = count()
+        fn()
+        made.append(count() - before)
 
-    def rows(device_type, label):
-        return sorted(((e.self_device_time_total / 1e3 / reps, label(e))
-                       for e in events if e.device_type == device_type
-                       and e.self_device_time_total > 0), reverse=True)
-
-    kernels = rows(DeviceType.CUDA, lambda e: e.key[:80])
-    ops = rows(DeviceType.CPU, lambda e: f"{e.key} {e.input_shapes}")
-    return (sum(t for t, _ in kernels),
-            [[name, t] for t, name in kernels[:top]],
-            [[name, t] for t, name in ops[:top]])
-
-
-def kernel_device_ms(fn, reps: int = 50) -> float:
-    """Device time per call of the CUDA kernels fn() launches, from
-    torch.profiler: the kernel bodies alone, without the host's launch
-    time that CUDA events around back-to-back calls include."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    # A trace that caught no kernel is no measurement (not a zero).
-    return total / 1e3 / reps if total else "not measured"
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = profile_chain.profile(call, torch.device("cuda", 0), calls, 1,
+                                     top=None, logdir=logdir or tmp)["rows"]
+    mine = [(us, n) for name, us, n in rows if kernel in name
+            and (kernel != "mac_kmajor" or "pages" not in name)]
+    launched = sum(made[1:])  # made[0] is the profiler's warm-up call
+    held = sum(n for _, n in mine)
+    result = dict(trace_complete=launched > 0 and held == launched,
+                  launches=launched, traced_launches=held,
+                  device_ms="not measured", kernel_ms="not measured",
+                  top_kernels=[])
+    if result["trace_complete"]:
+        result.update(
+            device_ms=sum(us for _, us, _ in rows) / 1e3 / calls,
+            kernel_ms=sum(us for us, _ in mine) / 1e3 / held,
+            top_kernels=[[name[:80], us / 1e3 / calls, n]
+                         for name, us, n in rows[:top]])
+    return result
 
 
 def bench_eq_definition(scale: float = 1.0) -> bd.EqualizerDefinition:
@@ -685,7 +733,13 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
                     plain_ms=cuda_ms(plain, 20),
                     library_ms=cuda_ms(library, 20), **bnd, **extra)
         if profiled:  # a launch-sized case: is it the host or the body?
-            case["profiled_device_ms"] = kernel_device_ms(kern)
+            trace = traced(kern, 50, kernel)
+            case.update(profiled_device_ms=trace["kernel_ms"],
+                        traced_launches=trace["traced_launches"])
+            if not trace["trace_complete"]:
+                raise AssertionError(f"{name}: the trace holds "
+                                     f"{trace['traced_launches']} of "
+                                     f"{trace['launches']} launches")
         phase("kernel", **case)
         if not rel <= KERNEL_TOL:
             raise AssertionError(f"{name}: rel-RMS {rel} > {KERNEL_TOL}")
@@ -932,6 +986,7 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
                 bound(4 * (fdl.numel() + h.numel() + O * Kp),
                       2 * Kp * R * O), profiled=True, bank="bundled 4096-tap")
         del fdl, h
+    launch_floor(dev, Kp)
 
     # The mesh phase's per-shard widths: the ring pool's MESH_SHARDS shards
     # (steady and fade O), the grouped ring pool's units (GROUPS groups
@@ -975,6 +1030,37 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
         del pages, bank, stacked
     torch.cuda.empty_cache()
     return cases
+
+
+def launch_floor(dev: torch.device, grid: int) -> dict:
+    """The launch floor beside the launch-sized rows (B=1 and B=16): an
+    empty kernel of the MAC kernels' own library (airwave_empty_launch) at
+    mac_kmajor's <<<grid, 256>>>, in CUDA-event ms per launch over
+    back-to-back launches (the host's launch rate) and in device ms from a
+    trace of 200 launches (traced), which must hold all 200."""
+    empty = mk._library()[0].airwave_empty_launch
+    empty.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    launched = [0]
+
+    def launch():
+        code = empty(grid, 256, dev.index or 0,
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"empty kernel: cuda error {code}")
+        launched[0] += 1
+
+    trace = traced(launch, 200, "airwave_empty_kernel", lambda: launched[0])
+    floor = dict(kernel="launch_floor", case=f"empty kernel <<<{grid}, 256>>>",
+                 ms=cuda_ms(launch, 200),
+                 profiled_device_ms=trace["kernel_ms"],
+                 traced_launches=trace["traced_launches"])
+    phase("kernel", **floor)
+    if not trace["trace_complete"]:
+        raise AssertionError(f"launch floor: the trace holds "
+                             f"{trace['traced_launches']} of "
+                             f"{trace['launches']} launches")
+    return floor
 
 
 def reference_lane(hrir, x, preamp, coeffs):
@@ -1083,39 +1169,17 @@ def bake_phase(rng: np.random.Generator, dev: torch.device) -> dict:
 
 
 @torch.inference_mode()
-def headline_chain(seed: int, dev: torch.device):
-    """The headline 8-block step (bench.py's paged bake: B=16384, M=8, a
-    seeded 4320-tap bank, the 10-filter EQ): the chain, a zero state and
-    one step's seeded input on the card."""
-    M = BLOCKS_PER_STEP
-    rng = np.random.default_rng(seed)
-    hrir = (rng.standard_normal((SPEAKERS, EARS, HRIR_TAPS)) * 0.05).astype(
-        np.float32)
-    hrir[:, :, 0] += 0.8
-    preamp, coeffs = bench_eq()
-    conv_params = upols.make_conv_params(hrir, BLOCK, pad_to_pow2=False,
-                                         lookahead=M, device=dev)
-    eq = eq_block.make_eq_params(coeffs, preamp, BLOCK, device=dev)
-    chain = BinauralChain(conv_params, eq, eq, 960, BLOCK, blocks_per_step=M)
-    state = ChainState(
-        conv=upols.make_conv_state_paged(
-            BATCH, SPEAKERS, conv_params.partition_count, BLOCK, M, dev),
-        eq=eq_block.make_eq_state(BATCH, device=dev),
-    )
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((BATCH, SPEAKERS, M, BLOCK), generator=gen,
-                    device=dev) * 0.25
-    return chain, state, x
-
-
 def timing_phase(seed: int, dev: torch.device, smi: str) -> int:
-    """The paged chain at B=16384, M=8 on device-resident input, 192 blocks
-    per call with a checksum fetched to the host (bench.py:measure's
-    pattern: one warm-up call, best of 3). Returns the peak device memory."""
+    """The paged chain at B=16384, M=8 on device-resident input
+    (tools/profile_chain.headline_chain, the chain the profile_chain phase
+    traces), 192 blocks per call with a checksum fetched to the host
+    (bench.py:measure's pattern: one warm-up call, best of 3). Returns the
+    peak device memory."""
     M = BLOCKS_PER_STEP
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        chain, state, x = headline_chain(seed, dev)
+        chain, state, x = profile_chain.headline_chain(
+            seed, dev, BATCH, BLOCKS_PER_STEP)
 
         def run(state):
             acc = torch.zeros((8, 128), device=dev)
@@ -1141,14 +1205,12 @@ def timing_phase(seed: int, dev: torch.device, smi: str) -> int:
             state, _ = chain(state, x)
 
         step_ms = cuda_ms(one_step, 10)
-        profiled_ms, kernels, ops = device_breakdown(one_step)
     audio_seconds = BATCH * TIMED_BLOCKS * BLOCK / SAMPLE_RATE
     phase("timing", card=smi, batch=BATCH, blocks_per_step=M,
           blocks=TIMED_BLOCKS, n_pages=len(state.conv.pages),
           ms_per_block_step=best / TIMED_BLOCKS * 1e3,
           x_realtime=audio_seconds / best, peak_memory_bytes=peak,
-          device_step_ms=step_ms, device_step_profiled_ms=profiled_ms,
-          device_step_top_kernels=kernels, device_step_top_ops=ops)
+          device_step_ms=step_ms)
     return peak
 
 
@@ -1241,7 +1303,7 @@ def precision_child(seed: int) -> None:
     """One tier of the precision phase, in a fresh interpreter whose
     AIRWAVE_MATMUL_PRECISION the parent set: the accuracy gate on the paged
     chain, the single-block chain and the ring pool; the headline 8-block
-    step in CUDA-event time with its kernels and ops from torch.profiler
+    step in CUDA-event time with its kernels from a trace (traced)
     and its relaxed products counted; the DFT products' cases
     (tier_cases); the strict policy checked after the step. Prints one
     line with precision_stamp() and exits 1 if a gated tier missed its
@@ -1261,7 +1323,8 @@ def precision_child(seed: int) -> None:
             [*argv, "--contract", str(contract), "--device", str(dev)])
         gates[path] = {"rel_rms": result["value"], "pass": result["pass"]}
     with torch.inference_mode():
-        chain, state, x = headline_chain(seed, dev)
+        chain, state, x = profile_chain.headline_chain(
+            seed, dev, BATCH, BLOCKS_PER_STEP)
 
         def one_step():
             nonlocal state
@@ -1275,17 +1338,17 @@ def precision_child(seed: int) -> None:
         products = precision.launch_count()
         macs = mk.launch_count("mac_kmajor_pages")
         step_ms = cuda_ms(one_step, 10)
-        profiled_ms, kernels, ops = device_breakdown(one_step)
+        profile = traced(one_step, 3, "mac_kmajor_pages")
         strict = precision_is_strict()
         del state, x
         torch.cuda.empty_cache()
         cases = tier_cases(chain, tier, dev, seed)
     phase("precision", tier=tier, card=card(), contract=contract,
           gated=tier in TIER_CONTRACT, gates=gates,
-          headline_step_ms=step_ms, headline_step_profiled_ms=profiled_ms,
+          headline_step_ms=step_ms, headline_step_profile=profile,
           relaxed_products_per_step=products, mac_launches_per_step=macs,
-          strict_policy_after_step=strict, cases=cases, top_kernels=kernels,
-          top_ops=ops, seconds=time.perf_counter() - t0, **precision_stamp())
+          strict_policy_after_step=strict, cases=cases,
+          seconds=time.perf_counter() - t0, **precision_stamp())
     failures = []
     if tier in TIER_CONTRACT:
         failures += [f"{path} rel-RMS {g['rel_rms']} > {contract}"
@@ -1492,7 +1555,6 @@ def pool_timing_phase(pool: StreamPool, base: np.ndarray, smi: str) -> int:
             x = x.view(len(lanes), SPEAKERS, M, BLOCK)
         device_round = saturated_round(pool, x)
         device_ms = cuda_ms(device_round, 10)
-        profiled_ms, kernels, ops = device_breakdown(device_round)
     round_ms = best / rounds * 1e3
     phase("pool_timing", card=smi, lanes=len(lanes), blocks_per_step=M,
           rounds=rounds, x_realtime=len(lanes) * rounds * step / SAMPLE_RATE
@@ -1501,9 +1563,7 @@ def pool_timing_phase(pool: StreamPool, base: np.ndarray, smi: str) -> int:
           pump_ms_per_round=best_split[1] / rounds * 1e3,
           pull_ms_per_round=best_split[2] / rounds * 1e3,
           device_round_variant=variant, device_round_ms=device_ms,
-          host_share=1.0 - device_ms / round_ms, peak_memory_bytes=peak,
-          device_round_profiled_ms=profiled_ms,
-          device_round_top_kernels=kernels, device_round_top_ops=ops)
+          host_share=1.0 - device_ms / round_ms, peak_memory_bytes=peak)
     return peak
 
 
@@ -1704,8 +1764,8 @@ def pool_hotswap_phase(label: str, wavs, dev: torch.device, M: int,
     lanes against the float64 time-varying reference; every round one MAC
     launch, at twice the steady O in a fade round (O = 8 ring, 64 paged) and
     at the steady O (4, 32) otherwise; then one steady and one fade device
-    round alone in CUDA-event time, the fade round's aten ops from
-    torch.profiler."""
+    round alone in CUDA-event time, the fade round's kernels from a trace
+    (traced)."""
     lanes = POOL_LANES[M]
     schedule, paused_rounds = HOTSWAP_SCHEDULE[M]
     renderers = [prepare_renderer(w, channel_maps.STEREO, SAMPLE_RATE, BLOCK,
@@ -1784,8 +1844,9 @@ def pool_hotswap_phase(label: str, wavs, dev: torch.device, M: int,
                                                  pool._operands(p)), 5)
         fade_ms = cuda_ms(lambda: device_round(dual, dual_ops,
                                                pool._xfade_ramp, mask), 5)
-        _, _, fade_ops = device_breakdown(
-            lambda: device_round(dual, dual_ops, pool._xfade_ramp, mask))
+        fade_profile = traced(
+            lambda: device_round(dual, dual_ops, pool._xfade_ramp, mask), 3,
+            name)
     phase(label, card=smi, lanes=lanes, blocks_per_step=M,
           prewarm_seconds=prewarm_seconds, seconds=seconds,
           rounds=len(round_kinds), round_kinds=round_kinds,
@@ -1794,7 +1855,7 @@ def pool_hotswap_phase(label: str, wavs, dev: torch.device, M: int,
           lanes_sampled=sampled, paused_lane=paused,
           lane_fades=[rec.events[b] for b in sampled], lane_rel_rms=lane_err,
           steady_round_device_ms=steady_ms, fade_round_device_ms=fade_ms,
-          fade_round_top_ops=fade_ops)
+          fade_round_profile=fade_profile)
     if not max(lane_err) <= CHAIN_TOL:
         raise AssertionError(f"{label}: lane rel-RMS {lane_err} > {CHAIN_TOL}")
     if round_kinds[-1] != "steady" or pool._xfade_params is not None:
@@ -2047,7 +2108,7 @@ def pool_grouped_phase(label: str, wavs, dev: torch.device, M: int,
                                    turns=turns,
                                    grouped_mac_launches=per_round)
             del fns
-        _, kernels, _ = device_breakdown(saturated_round(pool, x), top=6)
+        profile = traced(saturated_round(pool, x), 3, name, top=6)
         del flat
     torch.cuda.empty_cache()
     base = rng.standard_normal((lanes, SPEAKERS, step), dtype=np.float32) * 0.25
@@ -2071,7 +2132,7 @@ def pool_grouped_phase(label: str, wavs, dev: torch.device, M: int,
         best = min(best, time.perf_counter() - t1)
     round_ms = best / timed * 1e3
     result.update(
-        card=smi, device_round=rounds_ms, device_round_top_kernels=kernels,
+        card=smi, device_round=rounds_ms, device_round_profile=profile,
         ms_per_round=round_ms,
         host_share=1.0 - rounds_ms["steady"]["grouped_ms"] / round_ms,
         x_realtime=lanes * timed * step / SAMPLE_RATE / best,
@@ -2307,8 +2368,10 @@ class PumpClock:
     """Installed on one pool instance (the server's pump thread calls
     pool.pump): the host wall time spent in pump and its calls, and, once
     armed, a torch.profiler trace of the next `calls` pump calls taken in
-    the pump thread itself (the profiler records the host ops of the thread
-    that starts it, and the card's kernels of every thread)."""
+    the pump thread itself after one warm-up call, whose events are
+    dropped, its window opened by tools/profile_chain.lead_kernels, as
+    tools/profile_chain.profile does (the profiler records the host ops of
+    the thread that starts it, and the card's kernels of every thread)."""
 
     def __init__(self, pool: StreamPool):
         self.pool, self.seconds, self.calls = pool, 0.0, 0
@@ -2320,16 +2383,22 @@ class PumpClock:
     def arm(self, calls: int) -> None:
         self._armed = calls
 
+    @staticmethod
+    def _macs() -> int:
+        return sum(mk.launch_count(name) for name in KERNELS)
+
     def __call__(self, *args, **kwargs):
         if self._armed and self._prof is None:
-            from torch.profiler import ProfilerActivity, profile
+            from torch.profiler import ProfilerActivity, profile, schedule
 
-            self._prof = profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA])
+            self._prof = profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=self._armed,
+                                  repeat=1))
             self._prof.__enter__()
-            self._window = [time.perf_counter(), self.pool.rounds, 0.0,
-                            self._armed]
+            self._window = None  # opened after the warm-up call
         t0 = time.perf_counter()
+        macs = self._macs()
         try:
             return self._pump(*args, **kwargs)
         finally:
@@ -2337,36 +2406,49 @@ class PumpClock:
             self.seconds += dt
             self.calls += 1
             if self._prof is not None:
-                self._window[2] += dt
-                self._window[3] -= 1
-                if self._window[3] == 0:
+                if self._window is not None:
+                    self._window[2] += dt
+                    self._window[3] -= 1
+                    self._window[4] += self._macs() - macs
+                self._prof.step()
+                if self._window is None:
+                    profile_chain.lead_kernels(self.pool.device)
+                    # [start, rounds, pump seconds, calls left, MAC launches]
+                    self._window = [time.perf_counter(), self.pool.rounds,
+                                    0.0, self._armed, 0]
+                elif self._window[3] == 0:
                     self._close_profile()
 
     def _close_profile(self) -> None:
         """Stop the trace (in the pump thread that started it, under the
         server's lock: the stop's seconds are a stall the phase reports);
         the events are summarized later, off the serving path."""
-        start, rounds0, pump_s, _ = self._window
+        start, rounds0, pump_s, _, macs = self._window or (
+            time.perf_counter(), self.pool.rounds, 0.0, 0, 0)
         wall = time.perf_counter() - start
         rounds = self.pool.rounds - rounds0
         t0 = time.perf_counter()
         self._prof.__exit__(None, None, None)
         self._stopped = (self._prof, wall, rounds, pump_s,
-                         time.perf_counter() - t0)
+                         time.perf_counter() - t0, macs)
         self._prof, self._armed = None, 0
 
     def remove(self) -> dict:
         """Uninstall (after the load: the pump is idle) and summarize the
         trace: the card's and the pump thread's busy shares over the traced
         calls, ms per round, the top kernels and host ops. A trace still
-        open because fewer calls came is stopped first."""
+        open because fewer calls came is stopped first. The trace must hold
+        every MAC launch of the traced calls, else the card's numbers read
+        "not measured" (a trace that drops kernels reads low)."""
         del self.pool.pump  # the class's method again
         if self._prof is not None:
             self._close_profile()
         from torch.autograd import DeviceType
 
-        prof, wall, rounds, pump_s, stop_s = self._stopped
-        events = prof.key_averages()
+        prof, wall, rounds, pump_s, stop_s, macs = self._stopped
+        events = [e for e in prof.key_averages()
+                  if not e.key.startswith("ProfilerStep")  # the schedule's
+                  and profile_chain.LEAD_KERNEL_NAME not in e.key]
         device_ms = sum(e.self_device_time_total for e in events
                         if e.device_type == DeviceType.CUDA) / 1e3
         kernels = sorted(((e.self_device_time_total / 1e3, e.key[:60])
@@ -2375,12 +2457,20 @@ class PumpClock:
         host = sorted(((e.self_cpu_time_total / 1e3, e.key) for e in events
                        if e.device_type == DeviceType.CPU
                        and e.self_cpu_time_total > 0), reverse=True)
+        held = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                   and "mac_kmajor" in e.key)
+        complete = macs > 0 and held == macs
+        if not complete:
+            device_ms, kernels = "not measured", []
         per = max(rounds, 1)
         return dict(
             calls=SERVE_PROFILE_CALLS, window_s=wall, rounds=rounds,
-            stop_seconds=stop_s, device_busy_share=device_ms / (wall * 1e3),
+            stop_seconds=stop_s, trace_complete=complete,
+            mac_launches=macs, traced_mac_launches=held,
+            device_busy_share=(device_ms / (wall * 1e3) if complete
+                               else device_ms),
             pump_busy_share=pump_s / wall,
-            device_ms_per_round=device_ms / per,
+            device_ms_per_round=device_ms / per if complete else device_ms,
             pump_ms_per_round=pump_s * 1e3 / per,
             wall_ms_per_round=wall * 1e3 / per,
             top_kernels_ms=[[k, t] for t, k in kernels[:6]],
@@ -2868,7 +2958,7 @@ def demo_phase(rng: np.random.Generator, smi: str) -> dict:
     DEMO_SWAP_BLOCK; the steady Neutral segment (past the EQ ramp), the
     fade blocks and the steady Room segment against float64; mac_kmajor
     launched once a block, at O = 8 in the fade blocks; host wall per
-    block, the card's time per block from torch.profiler and its busy
+    block, the card's time per block from a trace (traced) and its busy
     share, the realtime multiple. Returns the launches of both runs."""
     blocks = []
     build = shell_app.build_demo
@@ -2956,22 +3046,25 @@ def demo_phase(rng: np.random.Generator, smi: str) -> dict:
             channel_maps.STEREO, SAMPLE_RATE)
             for p in (neutral, room)]
 
-        # The card's time per block: torch.profiler over more blocks of the
-        # same stream (for the record; these blocks are not checked).
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        # The card's time per block: a trace of more blocks of the same
+        # stream (for the record; these blocks are not checked).
+        per_call = DEMO_PROFILED_BLOCKS // DEMO_PROFILED_CALLS
+        walls = []
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        def pump_blocks():
             t1 = time.perf_counter()
-            for _ in range(DEMO_PROFILED_BLOCKS):
+            for _ in range(per_call):
                 demo.transport.pump(BLOCK)
             torch.cuda.synchronize()
-            traced_wall = time.perf_counter() - t1
-        card_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      ) / 1e3 / DEMO_PROFILED_BLOCKS
-        del calls[-DEMO_PROFILED_BLOCKS:]
+            walls.append(time.perf_counter() - t1)
+
+        trace = traced(pump_blocks, DEMO_PROFILED_CALLS, "mac_kmajor")
+        # The last trace's calls, after its warm-up call.
+        traced_wall = sum(walls[-DEMO_PROFILED_CALLS:])
+        card_ms = trace["device_ms"]
+        if trace["trace_complete"]:
+            card_ms /= per_call
+        del calls[-len(walls) * per_call:]
 
         # One engine block's device step alone, in CUDA-event time (steady
         # and fade), on device-resident input.
@@ -3020,9 +3113,12 @@ def demo_phase(rng: np.random.Generator, smi: str) -> dict:
           host_ms_per_block=host_per_block,
           host_ms_per_block_p50=float(np.percentile(host_ms, 50)),
           host_ms_per_block_p99=float(np.percentile(host_ms, 99)),
-          card_ms_per_block=card_ms,
-          card_busy_share=card_ms / (traced_wall * 1e3 / DEMO_PROFILED_BLOCKS),
-          card_busy_share_of_callback=card_ms / host_per_block,
+          card_ms_per_block=card_ms, card_trace=trace,
+          card_busy_share=(card_ms / (traced_wall * 1e3 / DEMO_PROFILED_BLOCKS)
+                           if trace["trace_complete"] else card_ms),
+          card_busy_share_of_callback=(card_ms / host_per_block
+                                       if trace["trace_complete"]
+                                       else card_ms),
           steady_step_device_ms=steady_ms, fade_step_device_ms=fade_ms,
           wall_seconds=wall,
           realtime_multiple=(DEMO_BLOCKS * BLOCK / SAMPLE_RATE) / wall,
@@ -3055,21 +3151,21 @@ def host_blocks(seed: int, shape: tuple, n: int, dev: torch.device) -> list:
             .cpu().numpy() for _ in range(n)]
 
 
-def copy_overlap(fn) -> dict:
-    """fn() traced by torch.profiler: from the trace's device events, the
+def copy_overlap(fn, kernel: str) -> dict:
+    """fn() traced (traced, one call after a warm-up call; the trace must
+    hold every launch of `kernel`): from the trace's device events, the
     host-to-device copies and their streams, the kernels' streams, and how
     much of the copies' time a kernel on another stream was running."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
+        trace = traced(fn, 1, kernel, logdir=tmp)
+        with open(os.path.join(tmp, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
+    counts = dict(trace_complete=trace["trace_complete"],
+                  mac_launches=trace["launches"],
+                  traced_mac_launches=trace["traced_launches"])
+    if not trace["trace_complete"]:
+        return dict(counts, h2d_ms="not measured",
+                    h2d_overlapped_ms="not measured")
 
     def spans(pred):
         return [(e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"))
@@ -3088,7 +3184,7 @@ def copy_overlap(fn) -> dict:
                 overlapped += b - max(a, reach)
                 reach = b
     copy_us = sum(end - start for start, end, _ in copies)
-    return dict(h2d_copies=len(copies), h2d_ms=copy_us / 1e3,
+    return dict(counts, h2d_copies=len(copies), h2d_ms=copy_us / 1e3,
                 h2d_overlapped_ms=overlapped / 1e3,
                 h2d_overlap_share=overlapped / copy_us if copy_us else 0.0,
                 copy_streams=sorted({s for *_, s in copies}),
@@ -3104,8 +3200,8 @@ def feeder_phase(wav, dev: torch.device, seed: int, smi: str) -> dict:
     unstaged loop (torch.from_numpy(x).to(dev), then the step) on an equal
     fresh state: equal bit for bit, 4 sampled lanes within 1e-5 of
     float64, one MAC launch per block or step; wall ms per block or step
-    of both loops, the pinned bytes held, and from torch.profiler (for the
-    record) the streams the copies and the kernels ran on and how much of
+    of both loops, the pinned bytes held, and from a trace (copy_overlap;
+    for the record) the streams the copies and the kernels ran on and how much of
     the copies' time overlapped a kernel. Returns the feeder runs'
     launches."""
     preamp, coeffs = bench_eq()
@@ -3160,13 +3256,15 @@ def feeder_phase(wav, dev: torch.device, seed: int, smi: str) -> dict:
             got = got.permute(0, 2, 1, 3).reshape(len(lanes), EARS, -1).cpu()
             del plain, fed
 
-            def traced():
+            def profiled_steps():
                 feeder.prime(xs[0])
                 for x in xs[1:FEEDER_PROFILED]:
                     feeder.step(x)
                 feeder.flush()
 
-            overlap = copy_overlap(traced)
+            overlap = copy_overlap(profiled_steps,
+                                   "mac_kmajor_pages" if M > 1
+                                   else "mac_kmajor")
             pinned = feeder.pinned_bytes
             del feeder
         lane_err = [rel_rms(got[i].numpy(), reference_lane(
@@ -3205,12 +3303,20 @@ class CheckedMacs:
     else AssertionError. The plain version is no launch, so the paths'
     counts are unchanged. `launches` counts the checked launches by kernel,
     `cases()` lists them by shape with their largest errors and how many
-    had a non-zero reference."""
+    had a non-zero reference. With `limit`, a sample of a long path: each
+    shape's launches are checked until `limit` of them had a non-zero
+    reference (a group's lanes may idle through the first rounds); the
+    later ones run unchecked."""
 
-    def __init__(self, path: str):
-        self.path = path
+    def __init__(self, path: str, limit: "int | None" = None):
+        self.path, self.limit = path, limit
         self.launches = dict.fromkeys(KERNELS, 0)
         self._shapes = {}
+
+    def _sampling(self, kernel: str, shape: str) -> bool:
+        case = self._shapes.get((kernel, shape))
+        return (self.limit is None or case is None
+                or case["nonzero_reference_launches"] < self.limit)
 
     def __enter__(self):
         self._saved = kernel, fused = upols.mac_kmajor, upols.mac_kmajor_pages
@@ -3220,16 +3326,18 @@ class CheckedMacs:
                 raise AssertionError("CheckedMacs: accumulate is not checked")
             y = kernel(fdl, h, out=out, **kw)
             K, R, B = fdl.shape
-            self._check("mac_kmajor", f"K={K} R={R} O={h.shape[1]} B={B}", y,
-                        mk.mac_kmajor_ref(fdl, h))
+            shape = f"K={K} R={R} O={h.shape[1]} B={B}"
+            if self._sampling("mac_kmajor", shape):
+                self._check("mac_kmajor", shape, y, mk.mac_kmajor_ref(fdl, h))
             return y
 
         def mac_pages(pages, bank, out=None, **kw):
             y = fused(pages, bank, out=out, **kw)
             K, R, B = pages[0].shape
-            self._check("mac_kmajor_pages", f"{len(pages)} pages K={K} R={R} "
-                        f"O={bank.shape[2]} B={B}", y,
-                        mk.mac_kmajor_pages_ref(pages, bank))
+            shape = f"{len(pages)} pages K={K} R={R} O={bank.shape[2]} B={B}"
+            if self._sampling("mac_kmajor_pages", shape):
+                self._check("mac_kmajor_pages", shape, y,
+                            mk.mac_kmajor_pages_ref(pages, bank))
             return y
 
         upols.mac_kmajor, upols.mac_kmajor_pages = mac, mac_pages
@@ -4008,8 +4116,7 @@ def mesh_speaker_part(wav, dev: torch.device, rng: np.random.Generator,
         turns = [cuda_ms(f, MESH_TIMED_STEPS)
                  for f in (plain_step, sharded_step, sharded_step, plain_step)]
         # Where the sharded step's card time goes (for the record).
-        profile = dict(zip(("device_ms", "top_kernels", "top_ops"),
-                           device_breakdown(sharded_step, reps=1)))
+        profile = traced(sharded_step, 1, "mac_kmajor")
         del x, sharded, plain
     torch.cuda.empty_cache()
     R = 2 * renderer.partition_count * S // SPEAKER_MESH[1]
@@ -4327,9 +4434,11 @@ def steady_capacity_phase(wav, dev: torch.device, calibrations: dict,
     Its peak (device bytes above the allocation before it was built) must be
     at most 0.85 * PLANNER_HBM, and the steady estimate (the steady round's
     fixed bytes plus its per-lane bytes times the lanes) over the peak at
-    most 1.3: the limits the planner phase holds max_streams to. Then one
-    round on the soaked carry under CheckedMacs. Returns (the path's
-    launches, the checked cases)."""
+    most 1.3: the limits the planner phase holds max_streams to. Then a
+    reset swap (set_renderer(crossfade=False) onto the same bank, which
+    zeroes the carry in place) and one round, whose peak must stay under
+    0.85 * PLANNER_HBM too, and one more round under CheckedMacs. Returns
+    (the path's launches, the checked cases)."""
     t0 = time.perf_counter()
     mk.reset_launch_count()
     checked = CheckedMacs("steady_capacity")
@@ -4354,6 +4463,13 @@ def steady_capacity_phase(wav, dev: torch.device, calibrations: dict,
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
         seconds = time.perf_counter() - t1
+        # A reset swap (crossfade=False onto the same-shape bank zeroes the
+        # carry in place) and one round on the zeroed carry, at the plan.
+        torch.cuda.reset_peak_memory_stats()
+        pool.set_renderer(pool.renderers[0], crossfade=False)
+        soak_tool.make_call(pool, x, M)()
+        torch.cuda.synchronize()
+        reset_peak = torch.cuda.max_memory_allocated() - base
         with checked:
             acc = soak_tool.make_call(pool, x, M)()
             finite = bool(torch.isfinite(acc).all())
@@ -4365,6 +4481,8 @@ def steady_capacity_phase(wav, dev: torch.device, calibrations: dict,
             steady_fixed_bytes=steady["fixed_bytes"], peak_bytes=peak,
             steady_estimate_bytes=estimate, estimate_over_peak=estimate / peak,
             peak_over_budget=peak / PLANNER_HBM, soak=result,
+            reset_swap_peak_bytes=reset_peak,
+            reset_swap_peak_over_budget=reset_peak / PLANNER_HBM,
             checked_round_finite=finite, seconds=seconds)
     launched = {name: mk.launch_count(name) - checked.launches[name]
                 for name in KERNELS}
@@ -4376,15 +4494,21 @@ def steady_capacity_phase(wav, dev: torch.device, calibrations: dict,
         if not t["peak_bytes"] <= 0.85 * PLANNER_HBM:
             raise AssertionError(f"steady_capacity ({tier}): peak "
                                  f"{t['peak_bytes']} over 0.85 x {PLANNER_HBM}")
+        if not t["reset_swap_peak_bytes"] <= 0.85 * PLANNER_HBM:
+            raise AssertionError(f"steady_capacity ({tier}): the reset swap "
+                                 f"peaks at {t['reset_swap_peak_bytes']}, "
+                                 f"over 0.85 x {PLANNER_HBM}")
         if not t["estimate_over_peak"] <= 1.3:
             raise AssertionError(f"steady_capacity ({tier}): estimate over "
                                  f"peak {t['estimate_over_peak']} > 1.3")
         if not t["checked_round_finite"]:
             raise AssertionError(f"steady_capacity ({tier}): not finite")
         check_soak(f"steady_capacity ({tier})", t["soak"], M)
+    # Each tier's soak, and its one round after the reset swap.
     expected = {name: sum(soak_launches(t["soak"], 1 if tier == "ring"
                                         else BLOCKS_PER_STEP)[name]
-                          for tier, t in tiers.items()) for name in KERNELS}
+                          for tier, t in tiers.items()) + 1
+                for name in KERNELS}
     if launched != expected:
         raise AssertionError(f"steady_capacity: launches {launched}, "
                              f"expected {expected}")
@@ -4417,6 +4541,152 @@ def checkpoint_scale_phase(dev: torch.device, smi: str) -> dict:
         raise AssertionError(f"checkpoint_scale: launches {launches}, "
                              f"expected one mac_kmajor_pages (the warm round)")
     return launches
+
+
+def profile_chain_phase(smi: str) -> tuple:
+    """tools/profile_chain at the headline bake (B=16384, M=8) and both
+    pool tiers (ring 8192 lanes, paged 16384 lanes with M=8): per path, its
+    warm-up call under CheckedMacs (a sample of PROFILE_CHECKED launches a
+    shape), then tools/profile_chain.profile of PROFILE_CALLS calls of
+    PROFILE_BLOCKS blocks. Each path's rows (CUDA kernels by device time)
+    must name its MAC kernel and count every launch of it in the traced
+    calls, the bake's also its GEMMs. Returns (launches by path, the
+    checked cases)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    launches, checks = {}, []
+    for path, (pool, M, batch) in PROFILE_PATHS.items():
+        free_device_memory()
+        mk.reset_launch_count()
+        call, blocks = profile_chain.build_call(batch, PROFILE_BLOCKS, M,
+                                                pool=pool, device=dev)
+        with CheckedMacs(path, limit=PROFILE_CHECKED) as checked:
+            call().to("cpu")  # the warm-up, outside the trace
+        with tempfile.TemporaryDirectory() as tmp:
+            result = profile_chain.profile(call, dev, PROFILE_CALLS, blocks,
+                                           logdir=tmp)
+            trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
+        del call
+        launches[path] = {name: mk.launch_count(name) for name in KERNELS}
+        checks += checked.cases()
+        kernel = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+        rows = result["rows"]
+        mac_rows = [count for name, _, count in rows
+                    if kernel in name and (M > 1 or "pages" not in name)]
+        want = PROFILE_CALLS * blocks // M
+        phase("profile_chain", card=smi, path=path, batch=batch,
+              blocks_per_step=M, blocks=blocks, calls=PROFILE_CALLS,
+              sum_listed_ms_per_block=result["sum_listed_ms_per_block"],
+              device_ms_per_block=result["device_ms_per_block"],
+              trace_bytes=trace_bytes, launches=launches[path],
+              traced_mac_launches=sum(mac_rows), expected_traced=want,
+              checked_launches=checked.launches,
+              top_rows=[[name[:110], us / 1e3 / result["blocks_total"],
+                         count] for name, us, count in rows[:PROFILE_TOP]])
+        if sum(mac_rows) != want:
+            raise AssertionError(f"{path}: the trace holds {sum(mac_rows)} "
+                                 f"{kernel} launches of {want}")
+        if not pool and not any("gemm" in name.lower() for name, _, _ in rows):
+            raise AssertionError(f"{path}: no GEMM row in the profile")
+    torch.cuda.empty_cache()
+    phase("profile_chain", card=smi, seconds=time.perf_counter() - t0)
+    return launches, checks
+
+
+def fade_on_audio(pool: StreamPool, swaps) -> None:
+    """After a serving soak (its server stopped): one lane of each group
+    streams a round, then every group swaps to its first swap target
+    (crossfaded) and the lanes stream the fade round. The soak's swaps land
+    as clients connect, so its few fade rounds may see only silent delay
+    lines; this one gives each group's fade MAC audio to be checked on."""
+    rng = np.random.default_rng(FADE_CHECK_SEED)
+    lanes = [pool.attach(g) for g in range(pool.groups)]
+    S, T = pool.renderer.num_speakers, pool.step_frames
+    for swap in (False, True):
+        if swap:
+            for g in range(pool.groups):
+                pool.set_renderer(swaps[g][0], group=g)
+        pool.push_many(lanes, (rng.standard_normal((len(lanes), S, T))
+                               * 0.3).astype(np.float32))
+        pool.pump()
+        pool.pull_many(lanes, T)
+    for lane in lanes:
+        pool.detach(lane)
+
+
+def serve_soak_phase(wav, short, dev: torch.device, smi: str) -> tuple:
+    """tools/serve_soak on the card at the serve phases' width (SERVE_LANES
+    lanes, block 512) for SERVE_SOAK_SECONDS a tier: the ring tier (M=1) as
+    a grouped two-profile pool (the 4320-tap bank `wav` and the
+    SHORT_TAPS-tap `short`) and the paged tier (M=8) on `wav`, under the
+    test's churn (ragged clients, slow readers, EQ retargets, crossfaded
+    hot-swaps). Each must pass every criterion of tests/test_soak.py, with
+    its live device tensors flat; each window's MAC launches, and those of
+    a fade round on audio after it (fade_on_audio), run under CheckedMacs,
+    a sample of SERVE_SOAK_CHECKED a shape. Returns (launches by path, the
+    checked cases)."""
+    t0 = time.perf_counter()
+    launches, checks = {}, []
+    for path, M, banks in (("serve_soak_ring", 1, [wav, short]),
+                           ("serve_soak_paged", BLOCKS_PER_STEP, [wav])):
+        free_device_memory()
+        t1 = time.perf_counter()
+        pool, swaps = serve_soak.build(banks, SERVE_LANES, BLOCK, M, dev)
+        setup = time.perf_counter() - t1
+        mk.reset_launch_count()
+        with CheckedMacs(path, limit=SERVE_SOAK_CHECKED) as checked:
+            result = serve_soak.soak(pool, swaps, SERVE_SOAK_SECONDS,
+                                     np.random.default_rng(23))
+            fade_on_audio(pool, swaps)
+        launches[path] = {name: mk.launch_count(name) for name in KERNELS}
+        by_columns = {f"{name} O={o}": mk.launch_count(name, columns=o)
+                      for name in KERNELS for o in (4, 8, 32, 64)
+                      if mk.launch_count(name, columns=o)}
+        checks += checked.cases()
+        del pool, swaps
+        phase("serve_soak", card=smi, path=path, setup_seconds=setup,
+              launches=launches[path], launches_by_columns=by_columns,
+              checked_launches=checked.launches, **result)
+        if not result["pass"]:
+            raise AssertionError(f"{path}: {result.get('failures')}")
+        if ("device_requested_bytes_baseline" not in result
+                or result["waves"] < 7):
+            raise AssertionError(f"{path}: the window ended before the "
+                                 f"live-tensor baseline (wave 7)")
+        kernel = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
+        if not launches[path][kernel] or sum(launches[path].values()) != \
+                launches[path][kernel]:
+            raise AssertionError(f"{path}: launches {launches[path]}")
+    torch.cuda.empty_cache()
+    phase("serve_soak", card=smi, seconds=time.perf_counter() - t0)
+    return launches, checks
+
+
+def serve_scale_phase(dev: torch.device, smi: str) -> tuple:
+    """tools/serve_scale on the card: SERVE_SCALE_CLIENTS realtime loadgen
+    clients (a child process) against the in-process server on a ring pool
+    of clients + 8 lanes (the script's 300-tap bank), every client
+    complete and no server error; its MAC launches under CheckedMacs, a
+    sample of SERVE_SOAK_CHECKED a shape. Returns (the path's launches, the checked cases)."""
+    t0 = time.perf_counter()
+    free_device_memory()
+    args = serve_scale.build_parser().parse_args(
+        ["--clients", str(SERVE_SCALE_CLIENTS)])
+    mk.reset_launch_count()
+    with CheckedMacs("serve_scale", limit=SERVE_SOAK_CHECKED) as checked:
+        result = serve_scale.measure(args, dev)
+    launches = {name: mk.launch_count(name) for name in KERNELS}
+    phase("serve_scale", card=smi, seconds=time.perf_counter() - t0,
+          launches=launches, checked_launches=checked.launches, **result)
+    load, server = result["load"], result["server"]
+    if load["completed"] != SERVE_SCALE_CLIENTS or load["failed"]:
+        raise AssertionError(f"serve_scale: {load}")
+    if any(server[k] for k in ("protocol_errors", "pump_errors",
+                               "rejected_full", "truncated_closes")):
+        raise AssertionError(f"serve_scale: server errors {server}")
+    if not launches["mac_kmajor"] or launches["mac_kmajor_pages"]:
+        raise AssertionError(f"serve_scale: launches {launches}")
+    return launches, checked.cases()
 
 
 def main() -> None:
@@ -4522,8 +4792,15 @@ def main() -> None:
     soak_launches_by_path, soak_checks = soak_phase(dev, smi)
     launches.update(soak_launches_by_path)
     launches["checkpoint_scale"] = checkpoint_scale_phase(dev, smi)
+    profile_launches, profile_checks = profile_chain_phase(smi)
+    launches.update(profile_launches)
+    serve_soak_launches, serve_soak_checks = serve_soak_phase(
+        wav, short, dev, smi)
+    launches.update(serve_soak_launches)
+    launches["serve_scale"], serve_scale_checks = serve_scale_phase(dev, smi)
     path_checks = (checked.cases() + planner_checks + steady_checks
-                   + mesh_checks + soak_checks)
+                   + mesh_checks + soak_checks + profile_checks
+                   + serve_soak_checks + serve_scale_checks)
     phase("path_checks", tolerance_rel_rms=KERNEL_TOL, cases=path_checks)
     silent = [c["case"] for c in path_checks
               if not c["nonzero_reference_launches"]]
@@ -4539,7 +4816,9 @@ def main() -> None:
                  "serve_ring", "serve_paged", "render_graph",
                  "render_throughput", "feeder_single_block", "feeder_paged",
                  "migration", "planner", "steady_capacity", "soak_ring",
-                 "soak_paged", "checkpoint_scale")},
+                 "soak_paged", "checkpoint_scale", "profile_bake",
+                 "profile_pool_ring", "profile_pool_paged",
+                 "serve_soak_ring", "serve_soak_paged", "serve_scale")},
              **{path: {name: launches[path][name]["total"]
                        for name in KERNELS}
                 for path in ("demo", "demo_cli")},

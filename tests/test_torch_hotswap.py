@@ -31,6 +31,7 @@ from airwave_tpu_torch.io.wav import WAVData as TWAVData
 from airwave_tpu_torch.models.binaural import BinauralEngine as TEngine
 from airwave_tpu_torch.ops import upols as tupols
 from airwave_tpu_torch.runtime.stream_pool import StreamPool as TPool
+from airwave_tpu_torch.runtime.stream_pool import _carry_leaves
 
 BLOCK = 64
 SR = 4800.0      # engine: the 20 ms fade is 96 samples, two 64-sample blocks
@@ -529,6 +530,80 @@ def test_fade_round_runs_one_mac_at_twice_the_columns(monkeypatch):
             pool.push(s, np.ones((2, pool.step_frames), np.float32))
             pool.pump()
         assert seen == [4 * M, 8 * M, 4 * M], M
+
+
+RESET_TOL = 1e-6  # the pools' outputs after a reset swap, port vs JAX
+
+
+def feed_rounds(pools, lanes, sigs, rounds, start):
+    """Push round `start`..`start + rounds - 1` of each lane's signal into
+    every pool and pump each round."""
+    for pool in pools:
+        L = pool.step_frames
+        for it in range(start, start + rounds):
+            for s, sig in zip(lanes, sigs):
+                pool.push(s, sig[:, it * L:(it + 1) * L])
+            pool.pump()
+
+
+@pytest.mark.parametrize("M", [1, 2])
+def test_pool_reset_swap_matches_jax(M):
+    """set_renderer(crossfade=False) onto a same-shape bank zeroes the carry
+    in place (each leaf keeps its storage) and the rounds after it render as
+    the JAX pool's do, within 1e-6."""
+    rng = np.random.default_rng(80 + M)
+    old = pool_renderers(81, lookahead=M)
+    new = pool_renderers(82, lookahead=M)
+    assert new[1].partition_count == old[1].partition_count
+    pair = PoolPair(3, old, M=M, ring_blocks=8 * M)
+    lanes = [pair.attach() for _ in range(2)]
+    L = pair.step
+    sigs = [(rng.standard_normal((2, 8 * L)) * 0.3).astype(np.float32)
+            for _ in lanes]
+    feed_rounds([pair.j, pair.t], lanes, sigs, 4, 0)
+    before = [pair.t.pull(s, 4 * L) for s in lanes]
+    ptrs = [t.data_ptr() for _, t in _carry_leaves(pair.t._state)]
+    assert pair.set_renderer(new, crossfade=False) is False
+    assert [t.data_ptr() for _, t in _carry_leaves(pair.t._state)] == ptrs
+    conv = pair.t._state.conv
+    assert not any(t.any() for t in (conv.pages if M > 1 else (conv.fdl,)))
+    feed_rounds([pair.j, pair.t], lanes, sigs, 4, 4)
+    for s, sig, head in zip(lanes, sigs, before):
+        assert rel_rms(head, pair.j.pull(s, 4 * L)) <= TOL
+        y, yj = pair.t.pull(s, 4 * L), pair.j.pull(s, 4 * L)
+        assert rel_rms(y, yj) <= RESET_TOL
+        # History restarts at the swap: the new bank over the later rounds.
+        assert rel_rms(y, full_conv(sig[:, 4 * L:], new[2])) <= TOL
+
+
+@pytest.mark.parametrize("M,materialize", [(1, False), (2, False), (1, True)])
+def test_snapshot_before_a_reset_swap_restores_bit_for_bit(M, materialize):
+    """A snapshot taken before a reset swap zeroes the carry in place is a
+    copy: restored after the swap (back onto the old bank), the pool renders
+    bit for bit as a twin that never swapped."""
+    rng = np.random.default_rng(90 + M)
+    old = pool_renderers(91, lookahead=M)
+    new = pool_renderers(92, lookahead=M)
+    pools = [TPool(3, SR48, old[1], block_size=BLOCK, blocks_per_step=M,
+                   ring_blocks=8 * M, device="cpu") for _ in range(2)]
+    lanes = [pools[0].attach(), pools[0].attach()]
+    assert [pools[1].attach() for _ in lanes] == lanes
+    L = pools[0].step_frames
+    sigs = [(rng.standard_normal((2, 8 * L)) * 0.3).astype(np.float32)
+            for _ in lanes]
+    feed_rounds(pools, lanes, sigs, 3, 0)
+    snap = pools[0].snapshot(materialize=materialize)
+    assert pools[0].set_renderer(new[1], crossfade=False) is False
+    feed_rounds(pools[:1], lanes, sigs, 1, 3)  # rounds on the zeroed carry
+    assert pools[0].set_renderer(old[1], crossfade=False) is False
+    pools[0].restore(snap)
+    for p in pools:
+        for s in lanes:
+            p.pull(s, p.available(s))
+    feed_rounds(pools, lanes, sigs, 4, 4)
+    for s in lanes:
+        np.testing.assert_array_equal(pools[0].pull(s, 4 * L),
+                                      pools[1].pull(s, 4 * L))
 
 
 def test_renderer_swap_validation():

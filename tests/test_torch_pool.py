@@ -412,6 +412,40 @@ def test_pump_failure_rebuilds_state_and_reraises(monkeypatch):
     assert pair.t.pump() == 1
 
 
+def test_pump_failure_hands_lost_steps_silence(monkeypatch):
+    """The steps a failed round had harvested come out as one step of
+    silence per lane, in order: each stream's output keeps its length (a
+    server flushing a stream waits for exactly its frames), and the rounds
+    after the failure render from the fresh carry."""
+    pair = Pair(3, gain=2.0)
+    lanes = [pair.t.attach() for _ in range(2)]
+    for s in lanes:
+        pair.t.push(s, np.ones((2, 3 * BLOCK), np.float32))
+    assert pair.t.pump(max_rounds=1) == 1
+    real, calls = tsp.pool_step_body, []
+
+    def second_fails(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("injected device failure")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tsp, "pool_step_body", second_fails)
+    with pytest.raises(RuntimeError, match="injected"):
+        pair.t.pump()
+    assert pair.t.render_errors == 1
+    for s in lanes:
+        # Round 1; round 2, rendered but not yet delivered when round 3
+        # failed (in flight: lost too); round 3's step. The last two silent.
+        assert pair.t.available(s) == 3 * BLOCK
+        y = pair.t.pull(s, 3 * BLOCK)
+        assert np.abs(y[:, :BLOCK]).max() > 0
+        np.testing.assert_array_equal(y[:, BLOCK:], 0.0)
+    monkeypatch.undo()
+    pair.t.push(lanes[0], np.ones((2, BLOCK), np.float32))
+    assert pair.t.pump() == 1 and pair.t.available(lanes[0]) == BLOCK
+
+
 @pytest.mark.parametrize("call, error, match", [
     (lambda p: tsp.StreamPool(2, SR, p.renderer, profiles=[p.renderer],
                               device="cpu"), ValueError, "not both"),

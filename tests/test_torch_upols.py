@@ -189,6 +189,42 @@ def test_masked_conv_resets_write_in_place():
         assert not page[..., 1::2].any() and page[..., 0::2].all()
 
 
+def test_full_conv_resets_write_in_place_and_match_jax():
+    """Without a mask the reset zeroes the delay line it is given (each
+    leaf keeps its storage: a pool at its plan has no room for a second
+    carry) and equals the JAX package's functional reset, write_pos 0."""
+    rng = np.random.default_rng(11)
+    fdl = rng.standard_normal((72, 2, 3, 2, 4)).astype(np.float32)
+    sj = jupols.conv_reset(jupols.ConvState(jnp.asarray(fdl), jnp.int32(2)))
+    line = torch.tensor(fdl)
+    st = tupols.conv_reset(tupols.ConvState(line, 2))
+    assert st.fdl.data_ptr() == line.data_ptr()
+    np.testing.assert_array_equal(line.numpy(), np.asarray(sj.fdl))
+    assert st.write_pos == int(sj.write_pos) == 0
+    pages = [rng.standard_normal((72, 2, 2, 4, 4)).astype(np.float32)
+             for _ in range(3)]
+    pj = jupols.conv_reset_paged(
+        jupols.PagedConvState(tuple(map(jnp.asarray, pages))))
+    leaves = tuple(map(torch.tensor, pages))
+    pt = tupols.conv_reset_paged(tupols.PagedConvState(leaves))
+    for got, leaf, want in zip(pt.pages, leaves, pj.pages):
+        assert got.data_ptr() == leaf.data_ptr()
+        np.testing.assert_array_equal(leaf.numpy(), np.asarray(want))
+
+
+def test_full_conv_reset_of_an_inference_carry():
+    """A carry made under inference_mode (as the pool and the engine make
+    theirs) is reset in place outside it too."""
+    with torch.inference_mode():
+        st = tupols.make_conv_state(4, 2, 3, 64, device="cpu")
+        pt = tupols.make_conv_state_paged(4, 2, 4, 64, 2, device="cpu")
+        st.fdl.fill_(1.0)
+        for pg in pt.pages:
+            pg.fill_(1.0)
+    assert not tupols.conv_reset(st).fdl.any()
+    assert not any(pg.any() for pg in tupols.conv_reset_paged(pt).pages)
+
+
 def test_state_builders_match_jax():
     st = tupols.make_conv_state(3, 2, 9, 64, device="cpu")
     sj = jupols.make_conv_state(3, 2, 9, 64)
