@@ -2,7 +2,11 @@
 //
 //   out[o, k, b] (+)= sum_r fdl[k, r, b] * h[k, o, r]
 //
-// fdl [K, R, B], h [K, O, R], out [O, K, B], all float32, batch minor.
+// fdl [K, R, B] and out [O, K, B], float32, batch minor and contiguous. h
+// [K, O, R] is read through its strides: each row h[k, o] is R floats in
+// runs of `seg` contiguous floats, one run for a contiguous h, S runs of
+// P2 * C for the rotated window of the doubled single-block bank, which the
+// step passes as it lies (no per-step copy of the operand).
 //
 // Replaces the Pallas TPU kernel airwave_tpu/kernels/mac_kmajor.py:mac_kmajor
 // (body _mac_body). It is the UPOLS delay-line contraction: per frequency bin
@@ -11,27 +15,45 @@
 // of the paged delay line, R = speakers x (re, im) x M slots against
 // O = M x ears x (re, im) columns (paged step).
 //
-// What bounds it on this card: device-memory bandwidth. Each (k, b) reads R
-// floats of the delay line and writes O floats (and reads them back when
-// accumulating) for 2*O*R flops: at O = R = 32 that is about 5 flop/byte,
-// far below the H100's fp32 ridge, and the delay line (GBs at B = 16384) is
-// streamed from HBM every step. The design therefore reads every delay-line
-// element exactly once, fully coalesced:
-//   - one CTA per (bin k, tile of 256 batch lanes); the batch sits on
-//     threadIdx.x, so each row r of fdl is one contiguous 1 KB span per CTA;
-//   - the bin's h[k] (O*R*4 bytes: 640 B single-block, 4 KB paged) is staged
-//     in shared memory once per CTA, transposed to [R, O] so that one
-//     float4 load brings four output columns; all threads of a warp read the
-//     same address, a broadcast. With one scalar load per FMA the O = 32
-//     case was bound by shared-memory load issue, not by HBM;
-//   - r outer, o inner: each fdl element is loaded once into a register and
-//     FMA'd into O register accumulators (fmaf, IEEE fp32, no fast-math);
-//   - the O outputs are stored coalesced along b; `accumulate` adds into
-//     the existing out, which is how the paged step sums its pages into one
-//     accumulator without a separate add pass. All O old values are loaded
-//     before the first store: interleaved load/add/store through one
-//     pointer at runtime offsets may alias, so the compiler would keep them
-//     in order, one memory latency per column.
+// What bounds it on this card. Each (k, b) reads R floats of the delay line
+// and writes O floats for 2 * O * R flops: at O = 4, R = 40 under 1 flop a
+// byte, far below the H100's fp32 ridge, so at the wide batches device
+// memory bounds it (the delay line, 1.4 GB at B = 16384, is streamed from
+// HBM every step). At the small batches of the live engine and the render
+// graph (B = 1 to 32) the whole call moves a few hundred KB: the launch, a
+// memory round trip and the r-order FMA chain bound it. Every output is one
+// fmaf chain in r order from zero, with the old value added once at the end
+// under `accumulate` (IEEE fp32, no fast-math, no tensor cores: wgmma takes
+// fp32 only as TF32), so every route gives the same bits, and the paged
+// kernel's per-page baseline, launches summed with `accumulate`, too.
+//
+// Four routes; the wrapper (kernels/mac_kmajor.py:mac_route) picks one by B
+// and O and passes its shape:
+//   - small (B up to 48, the crossover measured on the H100): a CTA of 256
+//     threads takes G bins. Their delay-line slabs and h rows go to shared
+//     memory by cp.async, every copy in flight at once, the work spread
+//     over all 8 warps with no per-element division; one wait, one
+//     barrier; then each thread computes one output (bin, column, lane)
+//     from shared memory, at strides that keep a warp's reads free of bank
+//     conflicts. The first design ran a CTA of 256 threads per bin with B of
+//     them working, each one memory round trip per 4 rows.
+//   - tiled (larger B, O = 4, 8, 12 or 32): one CTA per (bin, 256 lanes),
+//     one lane a thread, h[k] staged transposed to [R, O] (one float4
+//     broadcast for four columns of a row); at O = 4, 8 and 12
+//     mac_kmajor_tiled, through h's strides by cp.async (the rotated window
+//     in place), with a register budget per O that keeps enough warps on
+//     each SM; at O = 32 (the per-page baseline) the earlier fixed
+//     instance, mac_kmajor_fixed<32>, on a contiguous h.
+//   - balanced (O = 4, 8, 12; by default O = 4 and 8 from 512 lanes, where
+//     it measured faster than tiled): mac_kmajor_tiled on tiles that split
+//     B evenly (ceil(B / ceil(B / 256)) lanes rounded to whole warps, no
+//     nearly empty last tile), four lanes a thread with float4 rows where
+//     rows are 16-byte aligned (B % 4 == 0), each thread's first rows
+//     loaded before h is staged. chip_smoke.py times it in turns with the
+//     tiled route (PERF.md section 6).
+//   - generic (any other O, and generic=True: the A/B baseline): the
+//     first design, unchanged, 256 lanes a CTA and the columns 4 at a time; it
+//     takes a contiguous h.
 // The Pallas kernel's VMEM tiling, sublane padding and sequential grid have
 // no counterpart here: CTAs run in any order and share nothing.
 //
@@ -107,13 +129,6 @@
 //     the accumulate launches computed it, so every route agrees with them
 //     bit for bit. Rows are padded with zeros to whole stages (fmaf(0, 0, p)
 //     == p; only a -0 partial turns +0).
-//
-// The single-block kernel has fixed instances for the steady O = 4, the
-// dual-bank O = 8 of a hot-swap round, the three-half O = 12 of a second
-// swap while fades are pending and the paged O = 32; any other O runs
-// the generic kernel, which takes the columns 4 at a time and re-reads the
-// CTA's rows once per 4 columns. Every instance keeps each column's fmaf
-// chain in r order, so all routes agree bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -127,6 +142,267 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kChunk = 4;  // output columns per pass of the generic path
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Per-thread asynchronous copy of one float into shared memory; with
+// src_bytes 0 it writes a zero and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// The same for 16 bytes, both ends 16-byte aligned (through L2 only: each
+// delay-line float is read once).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Where the single-block kernels find row h[k, o]: at h + k * k_stride +
+// o * o_stride, its R floats in R / seg runs of seg contiguous floats, run
+// s at s * s_stride.
+struct HRows {
+  long long k_stride, o_stride, s_stride;
+  int seg;
+};
+
+// --- mac_kmajor, small route --------------------------------------------------
+
+// A small-route CTA's shared memory, in floats per bin: its [R, B] slab of
+// the delay line padded to xstride = B (mod 32), so that the lanes of
+// consecutive bins a warp reads fall in distinct banks; and its O rows of h,
+// each padded to an odd length, so that a warp's reads of consecutive rows
+// do too. kernels/mac_kmajor.py:small_smem_bytes computes the same.
+__host__ __device__ inline int small_xstride(int R, int B) {
+  const int slab = R * B;
+  return slab + ((B - slab) % 32 + 32) % 32;
+}
+
+__host__ __device__ inline int small_hrow(int R) { return R | 1; }
+
+// CTA c takes bins c * G .. c * G + G - 1. Every copy of their slabs (16
+// bytes a copy where vec) and of their h rows (warp w the rows w, w + 8,
+// ..., its lanes along the row) is in flight at once: one wait, one
+// barrier. Then thread i computes outputs i, i + blockDim.x, ... of the
+// CTA's G * O * B, ordered (bin, column, lane), from shared memory.
+__global__ void __launch_bounds__(kThreads)
+mac_kmajor_small(const float* __restrict__ fdl, const float* __restrict__ h,
+                 float* __restrict__ out, int K, int R, int B, int O,
+                 HRows hr, int G, int vec, int accumulate) {
+  extern __shared__ __align__(16) float sm[];
+  const int xstride = small_xstride(R, B);
+  const int hrow = small_hrow(R);
+  float* xs = sm;                // [G][xstride]
+  float* hs = sm + G * xstride;  // [G * O][hrow]
+  const int k0 = blockIdx.x * G;
+  const int bins = min(G, K - k0);
+  const int tid = threadIdx.x;
+  const int slab = R * B;
+  for (int g = 0; g < bins; ++g) {
+    const float* src = fdl + static_cast<size_t>(k0 + g) * slab;
+    if (vec) {
+      for (int i = 4 * tid; i < slab; i += 4 * blockDim.x) {
+        cp_async16(xs + g * xstride + i, src + i);
+      }
+    } else {
+      for (int i = tid; i < slab; i += blockDim.x) {
+        cp_async4(xs + g * xstride + i, src + i, 4);
+      }
+    }
+  }
+  const int warp = tid / 32, lane = tid % 32;
+  for (int row = warp; row < bins * O; row += blockDim.x / 32) {
+    const int g = row / O, o = row - g * O;
+    const float* src = h + (k0 + g) * hr.k_stride + o * hr.o_stride;
+    for (int r = lane; r < R; r += 32) {
+      int s = 0, j = r;
+      while (j >= hr.seg) {
+        j -= hr.seg;
+        ++s;
+      }
+      cp_async4(hs + row * hrow + r, src + s * hr.s_stride + j, 4);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int i = tid; i < bins * O * B; i += blockDim.x) {
+    const int row = i / B, b = i - row * B;  // row = (bin, column)
+    const int g = row / O, o = row - g * O;
+    const float* x = xs + g * xstride + b;
+    const float* w = hs + row * hrow;
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int r = 0; r < R; ++r) acc = fmaf(x[r * B], w[r], acc);
+    float* y = out + (static_cast<size_t>(o) * K + k0 + g) * B + b;
+    *y = accumulate ? *y + acc : acc;
+  }
+}
+
+// --- mac_kmajor, tiled route --------------------------------------------------
+
+// An instance's register budget (CTAs of 256 threads an SM holds: 8 is 32
+// registers a thread, every warp slot of the SM) and the rows of loads a
+// thread keeps in flight. Bytes bound the call and warps in flight keep HBM
+// busy: uncapped, the compiler took 62 registers at O = 8 and that instance
+// ran 14% slower than the earlier fixed one. At O = 12, 8 rows in flight
+// measured 2-4% faster than 4; at O = 8 and R = 20, 11% slower. V = 4
+// (four lanes a thread) holds 4 * O partials, so fewer of its CTAs fit.
+template <int O, int V>
+struct TiledShape {
+  static_assert(V == 1 || V == 4, "one lane a thread, or four");
+  static_assert(O == 4 || O == 8 || O == 12, "tiled instances: O = 4, 8, 12");
+  static constexpr int kMinCtas = V == 4 ? (O == 4 ? 4 : O == 8 ? 3 : 2)
+                                         : (O == 4 ? 8 : O == 8 ? 6 : 5);
+  static constexpr int kUnroll = V == 1 && O == 12 ? 8 : 4;
+  // Rows a V = 4 thread loads before it stages h, so that the delay line's
+  // first loads overlap the staging's round trip and barrier.
+  static constexpr int kAhead = V == 4 ? 4 : 0;
+};
+
+// V lanes of one delay-line row: one __ldg, or one float4 (16-byte aligned).
+template <int V>
+struct Lanes {
+  float v[V];
+  __device__ __forceinline__ static Lanes load(const float* p) {
+    Lanes l;
+    if constexpr (V == 4) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+      l.v[0] = f.x, l.v[1] = f.y, l.v[2] = f.z, l.v[3] = f.w;
+    } else {
+      l.v[0] = __ldg(p);
+    }
+    return l;
+  }
+};
+
+// Row r's FMAs: one float4 broadcast of h brings four columns.
+template <int O, int V>
+__device__ __forceinline__ void fma_row(float (&acc)[O][V], const Lanes<V>& x,
+                                        const float4* w4) {
+#pragma unroll
+  for (int q = 0; q < O / 4; ++q) {
+    const float4 w = w4[q];
+#pragma unroll
+    for (int l = 0; l < V; ++l) {
+      acc[4 * q + 0][l] = fmaf(x.v[l], w.x, acc[4 * q + 0][l]);
+      acc[4 * q + 1][l] = fmaf(x.v[l], w.y, acc[4 * q + 1][l]);
+      acc[4 * q + 2][l] = fmaf(x.v[l], w.z, acc[4 * q + 2][l]);
+      acc[4 * q + 3][l] = fmaf(x.v[l], w.w, acc[4 * q + 3][l]);
+    }
+  }
+}
+
+// CTA (t, k): bin k, lanes t * blockDim.x * V .. + blockDim.x * V - 1, V
+// adjacent lanes a thread (the tiled route: 256 lanes a CTA, one a thread;
+// the balanced route: tiles that split B evenly, four lanes a thread where
+// rows are 16-byte aligned). h[k] is staged in shared memory transposed to
+// [R, O] through h's strides by cp.async (the rotated window in place), so
+// the copies of all of a thread's elements are in flight at once (a staging
+// whose every load waited on its address arithmetic cost 14% at O = 8).
+// One float4 broadcast then brings four columns of a row. Each thread
+// loads its lanes of each row once (kUnroll rows in flight), coalesced
+// along b, and stores its O x V outputs coalesced along b.
+template <int O, int V>
+__global__ void __launch_bounds__(kThreads, (TiledShape<O, V>::kMinCtas))
+mac_kmajor_tiled(const float* __restrict__ fdl, const float* __restrict__ h,
+                 float* __restrict__ out, int K, int R, int B, HRows hr,
+                 int accumulate) {
+  using Shape = TiledShape<O, V>;
+  static_assert(O % 4 == 0, "float4 reads of h need O % 4 == 0");
+  extern __shared__ float4 hs4[];  // h[k] transposed: [R, O]
+  float* hs = reinterpret_cast<float*>(hs4);
+  const int k = blockIdx.y;
+  const int b = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  const float* x = fdl + static_cast<size_t>(k) * R * B + b;
+
+  Lanes<V> ahead[Shape::kAhead > 0 ? Shape::kAhead : 1];
+#pragma unroll
+  for (int r = 0; r < Shape::kAhead; ++r) {
+    if (b < B && r < R) {
+      ahead[r] = Lanes<V>::load(x + static_cast<size_t>(r) * B);
+    }
+  }
+
+  const float* hk = h + k * hr.k_stride;
+  for (int i = threadIdx.x; i < O * R; i += blockDim.x) {
+    const int o = i / R, r = i - o * R;
+    int s = 0, j = r;
+    if (hr.seg != R) {
+      s = r / hr.seg;
+      j = r - s * hr.seg;
+    }
+    cp_async4(hs + r * O + o, hk + o * hr.o_stride + s * hr.s_stride + j, 4);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  if (b >= B) return;  // V = 4: B % 4 == 0, so all V lanes lie below B
+
+  float acc[O][V];
+#pragma unroll
+  for (int o = 0; o < O; ++o) {
+#pragma unroll
+    for (int l = 0; l < V; ++l) acc[o][l] = 0.0f;
+  }
+#pragma unroll
+  for (int r = 0; r < Shape::kAhead; ++r) {
+    if (r < R) fma_row<O, V>(acc, ahead[r], hs4 + r * (O / 4));
+  }
+#pragma unroll(Shape::kUnroll)
+  for (int r = Shape::kAhead; r < R; ++r) {
+    fma_row<O, V>(acc, Lanes<V>::load(x + static_cast<size_t>(r) * B),
+                  hs4 + r * (O / 4));
+  }
+
+  // `accumulate`: all old values are loaded before the first store;
+  // interleaved load/add/store through one pointer at runtime offsets may
+  // alias, so the compiler would keep them in order, one latency a column.
+  float* y = out + static_cast<size_t>(k) * B + b;
+  const size_t plane = static_cast<size_t>(K) * B;
+  if constexpr (V == 4) {
+    if (accumulate) {
+      float4 old[O];
+#pragma unroll
+      for (int o = 0; o < O; ++o) {
+        old[o] = *reinterpret_cast<const float4*>(y + o * plane);
+      }
+#pragma unroll
+      for (int o = 0; o < O; ++o) {
+        acc[o][0] = old[o].x + acc[o][0];
+        acc[o][1] = old[o].y + acc[o][1];
+        acc[o][2] = old[o].z + acc[o][2];
+        acc[o][3] = old[o].w + acc[o][3];
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < O; ++o) {
+      *reinterpret_cast<float4*>(y + o * plane) =
+          make_float4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
+    }
+  } else {
+    if (accumulate) {
+#pragma unroll
+      for (int o = 0; o < O; ++o) acc[o][0] = y[o * plane] + acc[o][0];
+    }
+#pragma unroll
+    for (int o = 0; o < O; ++o) y[o * plane] = acc[o][0];
+  }
+}
+
+// The tiled route at O = 32, the per-page baseline's width: the earlier
+// fixed instance as it was, on a contiguous h (the wrapper copies a
+// strided one). Strided instances, and this one as a case of
+// mac_kmajor_tiled, ran 9-20% slower here whatever their register budget
+// and staging (the compiler gave the latter 95 registers to this one's 74;
+// PERF.md section 6); no path of the package reads a window at O = 32.
 template <int O>
 __global__ void __launch_bounds__(kThreads)
 mac_kmajor_fixed(const float* __restrict__ fdl, const float* __restrict__ h,
@@ -173,6 +449,8 @@ mac_kmajor_fixed(const float* __restrict__ fdl, const float* __restrict__ h,
 #pragma unroll
   for (int o = 0; o < O; ++o) y[o * plane] = acc[o];
 }
+
+// --- mac_kmajor, generic route (the first design, the A/B baseline) -----------
 
 // Any O: the columns are taken kChunk at a time, re-reading the CTA's fdl
 // rows (from L1/L2) once per chunk.
@@ -256,18 +534,6 @@ static_assert(kSlotRow % 4 == 0, "slot rows start 16-byte aligned");
 struct PagePtrs {
   const float* p[kMaxPages];
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Per-thread asynchronous copy of one float into shared memory; with
-// src_bytes 0 it writes a zero and reads nothing.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
 
 // Arrive on the mbarrier once this thread's earlier cp.async copies have
 // landed; it is one of the barrier's expected arrivals.
@@ -768,43 +1034,109 @@ class DeviceScope {
   cudaError_t status_ = cudaSuccess;
 };
 
+// One tiled launch: `width` lanes a CTA of `threads`, V = width / threads
+// lanes a thread.
+template <int O, int V>
+cudaError_t launch_tiled(const float* fdl, const float* h, float* out, int K,
+                         int R, int B, const HRows& hr, int accumulate,
+                         int width, int threads, cudaStream_t s) {
+  const dim3 grid((B + width - 1) / width, K);
+  mac_kmajor_tiled<O, V><<<grid, threads, sizeof(float) * O * R, s>>>(
+      fdl, h, out, K, R, B, hr, accumulate);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_tiled_any(const float* fdl, const float* h, float* out,
+                             int K, int R, int B, int O, const HRows& hr,
+                             int accumulate, int width, int threads,
+                             cudaStream_t s) {
+  switch (O) {
+    case 4:
+      return launch_tiled<4, V>(fdl, h, out, K, R, B, hr, accumulate, width,
+                                threads, s);
+    case 8:
+      return launch_tiled<8, V>(fdl, h, out, K, R, B, hr, accumulate, width,
+                                threads, s);
+    case 12:
+      return launch_tiled<12, V>(fdl, h, out, K, R, B, hr, accumulate, width,
+                                 threads, s);
+    case 32:  // the fixed instance: h is contiguous, 256 lanes a CTA
+      if (V != 1 || threads != kThreads) return cudaErrorInvalidValue;
+      mac_kmajor_fixed<32><<<dim3((B + kThreads - 1) / kThreads, K), kThreads,
+                             sizeof(float) * 32 * R, s>>>(fdl, h, out, K, R,
+                                                          B, accumulate);
+      return cudaGetLastError();
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream) and returns
-// cudaGetLastError() as an int: 0 means the launch was accepted. The caller
-// validates shapes, dtypes, contiguity and the shared-memory size. `generic`
-// nonzero runs the generic kernel whatever O is (the A/B of a dispatch
-// change).
-extern "C" int airwave_mac_kmajor(const float* fdl, const float* h, float* out,
-                                  int K, int R, int B, int O, int accumulate,
-                                  int generic, int device, void* stream) {
+// The single-block MAC on `stream` (PyTorch's current stream); returns
+// cudaGetLastError() as an int, 0 when the launch was accepted. `launch`
+// holds 12 integers, K, R, B, O, h_k, h_o, h_s, seg, route, width,
+// threads, device (kernels/mac_kmajor.py:_plan builds them once per shape,
+// so a call converts 6 arguments, not 17). h's rows lie as HRows says
+// (h_k, h_o, h_s, seg). `route` and its shape come from
+// kernels/mac_kmajor.py:mac_route: 1 small (`width` bins a CTA of
+// `threads`), 2 tiled or balanced (O = 4, 8, 12 or 32; at 32 h must be
+// contiguous; `width` lanes a CTA of `threads`, width == threads or, with
+// B % 4 == 0 and 16-byte aligned fdl and out, 4 * threads, four lanes a
+// thread; at 32 one lane a thread, 256 a CTA) and 0 generic (the first
+// design; h must be contiguous; 256 lanes a CTA of 256 threads). The
+// caller validates shapes, dtypes, the layouts and the shared-memory size;
+// a route shape the kernels cannot take returns cudaErrorInvalidValue.
+extern "C" int airwave_mac_kmajor_strided(const float* fdl, const float* h,
+                                          float* out, const long long* launch,
+                                          int accumulate, void* stream) {
+  const int K = static_cast<int>(launch[0]), R = static_cast<int>(launch[1]);
+  const int B = static_cast<int>(launch[2]), O = static_cast<int>(launch[3]);
+  const long long h_k = launch[4], h_o = launch[5], h_s = launch[6];
+  const int seg = static_cast<int>(launch[7]);
+  const int route = static_cast<int>(launch[8]);
+  const int width = static_cast<int>(launch[9]);
+  const int threads = static_cast<int>(launch[10]);
+  const int device = static_cast<int>(launch[11]);
+  if (seg < 1 || R % seg || width < 1 || threads < 32 || threads > kThreads ||
+      threads % 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const DeviceScope scope(device);
   if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const HRows hr{h_k, h_o, h_s, seg};
+  if (route == 1) {
+    const bool aligned =
+        B % 4 == 0 && reinterpret_cast<uintptr_t>(fdl) % 16 == 0;
+    const size_t smem = sizeof(float) * width *
+                        (static_cast<size_t>(small_xstride(R, B)) +
+                         static_cast<size_t>(O) * small_hrow(R));
+    if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+    mac_kmajor_small<<<(K + width - 1) / width, threads, smem, s>>>(
+        fdl, h, out, K, R, B, O, hr, width, aligned, accumulate);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route == 2) {
+    if (width == threads) {
+      return static_cast<int>(launch_tiled_any<1>(
+          fdl, h, out, K, R, B, O, hr, accumulate, width, threads, s));
+    }
+    const bool aligned = B % 4 == 0 &&
+                         reinterpret_cast<uintptr_t>(fdl) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    if (width != 4 * threads || !aligned) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(launch_tiled_any<4>(
+        fdl, h, out, K, R, B, O, hr, accumulate, width, threads, s));
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((B + kThreads - 1) / kThreads, K);
   const size_t smem = static_cast<size_t>(O) * R * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (generic ? 0 : O) {
-    case 4:
-      mac_kmajor_fixed<4><<<grid, kThreads, smem, s>>>(fdl, h, out, K, R, B,
-                                                       accumulate);
-      break;
-    case 8:
-      mac_kmajor_fixed<8><<<grid, kThreads, smem, s>>>(fdl, h, out, K, R, B,
-                                                       accumulate);
-      break;
-    case 12:
-      mac_kmajor_fixed<12><<<grid, kThreads, smem, s>>>(fdl, h, out, K, R, B,
-                                                        accumulate);
-      break;
-    case 32:
-      mac_kmajor_fixed<32><<<grid, kThreads, smem, s>>>(fdl, h, out, K, R, B,
-                                                        accumulate);
-      break;
-    default:
-      mac_kmajor_generic<<<grid, kThreads, smem, s>>>(fdl, h, out, K, R, B, O,
-                                                      accumulate);
-      break;
-  }
+  mac_kmajor_generic<<<grid, kThreads, smem, s>>>(fdl, h, out, K, R, B, O,
+                                                  accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,7 +16,8 @@ with s_k = (-1)^k, so the UPOLS sum over full-window spectra collapses onto
 the u history against G_q = H_{q-1} + s⊙H_q (_half_window_bank): the
 analysis contracts T samples instead of 2T and no overlap block is carried.
 The delay line is written in place, one slot per block, and the filter bank
-is rotated instead of the line.
+is rotated instead of the line: the MAC kernel reads the rotated window of
+the doubled bank where it lies.
 
 The carry layouts are the reference's, so states move between the two
 packages unchanged (interop.py). Unlike the reference, which is functional,
@@ -254,22 +255,29 @@ def _complex_block(h: torch.Tensor, k_padded: int) -> torch.Tensor:
 def single_block_bank(params: ConvParams, k_padded: int) -> torch.Tensor:
     """The single-block MAC operand for every rotation: [Kp, E*Q, S, 2*P2, C].
 
-    Rotation w is _rotated_operand(bank, w): a slice of the doubled
-    partition axis, flattened to the kernel's h [Kp, O=(E,Q), R=(S,P,C)]."""
+    Rotation w is _rotated_window(bank, w): a slice of the doubled
+    partition axis, which the kernel reads in place as its h [Kp, O=(E,Q),
+    R=(S,P,C)]."""
     h2 = _complex_block(params.Gflip2, k_padded)   # [S, E, 2P2, Kp, C, Q]
     S, E, P, Kp, C, Q = h2.shape
     return h2.permute(3, 1, 5, 0, 2, 4).reshape(Kp, E * Q, S, P, C)
 
 
+def _rotated_window(bank: torch.Tensor, write_pos: int) -> torch.Tensor:
+    """Filter operand of the block at cursor w, as it lies in the doubled
+    bank: a [Kp, O, S, P2, C] view whose slot j multiplies the block from
+    (w - j) blocks ago, G[(w - j) % P2] = Gflip2[(P2 - 1 - w) + j]. The
+    kernel reads it through its strides (each (P2, C) run is contiguous),
+    so a step makes no copy of it."""
+    P2 = bank.shape[3] // 2
+    return bank.narrow(3, P2 - 1 - write_pos, P2)
+
+
 def _rotated_operand(bank: torch.Tensor, write_pos: int) -> torch.Tensor:
-    """Filter operand of the block at cursor w: slot j multiplies the block
-    from (w - j) blocks ago, G[(w - j) % P2] = Gflip2[(P2 - 1 - w) + j].
-    Contiguous, as the kernel takes it: with one speaker the reshape of the
-    slice is a strided view, not a copy."""
-    Kp, O, S, P, C = bank.shape
-    P2 = P // 2
-    return bank.narrow(3, P2 - 1 - write_pos, P2).reshape(
-        Kp, O, S * P2 * C).contiguous()
+    """The rotated window as a contiguous [Kp, O, S*P2*C] copy: with one
+    speaker the reshape of the slice alone would be a strided view."""
+    Kp, O = bank.shape[:2]
+    return _rotated_window(bank, write_pos).reshape(Kp, O, -1).contiguous()
 
 
 def paged_bank(params: ConvParams, lookahead: int,
@@ -328,21 +336,23 @@ def _mac_columns(fdl: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """mac_kmajor over h's output columns in runs whose h[k] fits the
     kernel's shared memory (one launch for every steady and dual bank; a
     fade bank of many halves takes several launches, each writing its rows
-    of the [O, Kp, B] output)."""
-    K, O, R = h.shape
-    run = max(4, max_columns(R) // 4 * 4)
+    of the [O, Kp, B] output). h is [Kp, O, R] or a rotated window; each
+    run is a view of it."""
+    K, O = h.shape[:2]
+    run = max(4, max_columns(fdl.shape[1]) // 4 * 4)
     if O <= run or fdl.device.type == "cpu":
         return mac_kmajor(fdl, h)
     out = torch.empty((O, K, fdl.shape[-1]), dtype=fdl.dtype, device=fdl.device)
     for o in range(0, O, run):
-        mac_kmajor(fdl, h[:, o:o + run].contiguous(), out=out[o:o + run])
+        mac_kmajor(fdl, h[:, o:o + run], out=out[o:o + run])
     return out
 
 
 def _mac_irfft(fdl: torch.Tensor, h: torch.Tensor,
                synth: torch.Tensor) -> torch.Tensor:
     """Delay-line MAC + second-half inverse DFT:
-    fdl [Kp, S, P, C, B], h [Kp, E*Q, S*P*C], synth [T, Q*Kp] -> y [B, E, T].
+    fdl [Kp, S, P, C, B], h [Kp, E*Q, S*P*C] or its window [Kp, E*Q, S, P,
+    C], synth [T, Q*Kp] -> y [B, E, T].
 
     The MAC is the mac_kmajor kernel (its plain version on CPU tensors);
     its [E*Q, Kp, B] output is the synthesis matmul's right operand as it
@@ -387,7 +397,7 @@ def conv_step(params: ConvParams, state: ConvState, x: torch.Tensor,
     if active_mask is not None:
         new = torch.where(active_mask.to(torch.bool), new, slot)
     slot.copy_(new)
-    y = _mac_irfft(state.fdl, _rotated_operand(bank, w), synth)
+    y = _mac_irfft(state.fdl, _rotated_window(bank, w), synth)
     return ConvState(fdl=state.fdl, write_pos=(w + 1) % P2), y
 
 

@@ -4,10 +4,13 @@
     python3 chip_smoke.py --kernels-only [--baseline LABEL=SOURCE ...] [--split]
 
 With no arguments it runs every phase below. --baseline LABEL=SOURCE (an
-earlier commit's mac_kmajor.cu, built with the same nvcc flags) holds every
-mac_kmajor_pages case of the kernel phase to that build bit for bit and
-times the two in turns (its "builds" field), and times the planner's paged
-capacity pool's device rounds with either in turns (baseline_rounds phase);
+earlier commit's mac_kmajor.cu, or the root of a checkout of it, built with
+the same nvcc flags) holds every mac_kmajor_pages and every mac_kmajor case
+of the kernel phase to that build bit for bit and times the two in turns
+(its "builds" field; single-block cases as bare launches of either build,
+bind_single), and times the planner's paged capacity pool's device rounds
+with either in turns (baseline_rounds phase); for a checkout it also times
+that checkout's mac_kmajor wrapper beside this one's (wrapper phase);
 --split also times this mac_kmajor.cu built with MAC_PAGES_SPLIT=1 (no FMAs)
 and =2 (no row copies) at each paged case; --kernels-only stops there.
 
@@ -50,7 +53,22 @@ script's elapsed seconds):
      phase's per-shard widths (mac_kmajor at B=2048, O=4 and 8, B=1024
      with R=40 and 20, a 7.1.4 speaker shard, R=40 at B=4096, and a
      stereo speaker shard of the two gloo processes, R=20 at B=4096;
-     mac_kmajor_pages at B=4096, O=32 and 64); the B=1 and B=16 rows also
+     mac_kmajor_pages at B=4096, O=32 and 64); and the serving soak's
+     groups (mac_kmajor at B=516, R=40 and 20). Every mac_kmajor case
+     equals the generic kernel bit for bit and is timed in turns with it
+     (generic, route, route, generic) in CUDA events and, below 8192
+     lanes, in device time from CUDA-graph replays (graph_ms: launch-sized
+     cases read the card, not the host) rotating over copies of the
+     operands whose working set is at least twice the L2 where at most 64
+     copies reach it (graph_l2_resident marks the rows they do not), its
+     mac_route on the line; where that is the balanced or the tiled route
+     at O = 4, 8 or 12, the other of the two is held to it bit for bit and
+     timed in turns with it (its "other_route" field); the live
+     runtime's rows read the rotated window of the doubled bank in place,
+     and the steady one gives the wrapper's host µs a call over 1,000
+     calls without a sync (the floor's too); route_crossover times the
+     small, the tiled and the balanced route at B=16..128 with their device ms
+     from traces; the B=1 and B=16 rows also
      give the kernel's device time per launch from a trace of 50 launches
      (profiled_device_ms; tools/profile_chain.profile, after a warm-up
      call) beside their CUDA-event time, and the launch floor beside them:
@@ -303,6 +321,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import gc
 import hashlib
 import io
@@ -317,6 +336,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple
 from unittest import mock
 
 import numpy as np
@@ -429,6 +449,15 @@ SERVE_GROUPED_FRAMES = 12 * BLOCK + 77
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SERVE_LANES = 1032          # the serve CLI's pool: the clients and 8 spare
+SERVE_SOAK_GROUP = SERVE_LANES // 2  # a group of the grouped serving soak
+CROSSOVER_WIDTHS = (16, 32, 48, 64, 96, 128)  # small, tiled, balanced
+HOST_CALLS = 1000           # wrapper calls timed on the host, no sync
+GRAPH_TIMED_BELOW = 8192    # lanes: single-block cases also in device time
+L2_BYTES = 50 * 2 ** 20     # the H100's L2: graph_ms rotates inputs past it
+GRAPH_COPIES_MAX = 64       # input copies graph_ms rotates over, at most
+SOURCE_IN_ROOT = os.path.join("airwave_tpu_torch", "kernels", "csrc",
+                              "mac_kmajor.cu")
+TRACE_ATTEMPTS = 3          # traces taken while one loses kernel records
 SERVE_CLIENTS = 1024        # loadgen clients, paced at realtime
 LOADGEN_ARGS = ("--speed", "1.0", "--chunk", "512", "--blocks-each", "64")
 SERVE_CHECKS = 4            # wire clients with known inputs during the load
@@ -532,14 +561,64 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def load_build(source: str, defines=()):
-    """Another build of mac_kmajor_pages (--baseline, --split): the C entry
-    point airwave_mac_kmajor_pages of `source` (an earlier commit's
-    mac_kmajor.cu, or this one's with -D `defines`), built with the
-    package's nvcc flags into its build directory. Returns run(pages, bank)
-    -> out. It passes the columns the wrapper would pass; a source that
-    rejects them (an older kernel took only 0, 16 or 32) gets 0, its own
-    choice by O."""
+class OtherBuild(NamedTuple):
+    """Another build of both MAC kernels (--baseline, --split)."""
+    pages: Callable   # run(pages, bank) -> out, as mk.mac_kmajor_pages
+    bind: Callable    # bind(fdl, h, out=None, accumulate=False) -> launcher
+
+
+def bind_single(one, strided: bool, fdl, h, out=None, accumulate=False):
+    """A bare launcher of a build's single-block entry point on these
+    operands, returning out: `one` is airwave_mac_kmajor_strided (strided:
+    the wrapper's _plan, h read in place or copied as the wrapper copies it)
+    or an older build's airwave_mac_kmajor (its own dispatch by O, h copied
+    contiguous). The copy, the route and the arguments are made here, not
+    in the launcher, so that a launcher of this build and one of another
+    build time their kernels alike, neither with the wrapper's host work."""
+    K, R, B = fdl.shape
+    O = h.shape[1]
+    if out is None:
+        out = torch.empty((O, K, B), device=fdl.device)
+    dev = fdl.device.index or 0
+    if strided:
+        plan = mk._plan(K, R, B, O, mk.h_rows(h), None, dev,
+                        (fdl.data_ptr() | out.data_ptr()) % 16 == 0,
+                        h.dim() == 3 and h.is_contiguous())
+        if plan.copy:
+            h = mk._flat_h(h).contiguous()
+        args = (fdl.data_ptr(), h.data_ptr(), out.data_ptr(), plan.address,
+                int(accumulate))
+    else:
+        h = mk._flat_h(h).contiguous()
+        args = (fdl.data_ptr(), h.data_ptr(), out.data_ptr(), K, R, B, O,
+                int(accumulate), 0, dev)
+
+    def launch():
+        code = one(*args, torch.cuda.current_stream(fdl.device).cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"single-block launch: cuda error {code}")
+        return out
+
+    launch.operands = (fdl, h, out)  # alive while the launcher is
+    return launch
+
+
+def this_bind(fdl, h, out=None, accumulate=False):
+    """bind_single on this build's library."""
+    return bind_single(mk._library()[0].airwave_mac_kmajor_strided, True,
+                       fdl, h, out, accumulate)
+
+
+def load_build(source: str, defines=()) -> OtherBuild:
+    """Another build of the MAC kernels (--baseline, --split): `source` (an
+    earlier commit's mac_kmajor.cu, or the root of a checkout holding it,
+    or this one's with -D `defines`), built with the package's nvcc flags
+    into its build directory. Its pages entry point gets the columns the
+    wrapper would pass; a source that rejects them (an older kernel took
+    only 0, 16 or 32) gets 0, its own choice by O. Its single-block entry
+    point is bound as bind_single binds it."""
+    if os.path.isdir(source):
+        source = os.path.join(source, SOURCE_IN_ROOT)
     flags = [*_build.NVCC_FLAGS, *(f"-D{d}" for d in defines)]
     with open(source, "rb") as f:
         key = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()
@@ -552,10 +631,16 @@ def load_build(source: str, defines=()):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source} {defines}:\n"
                                f"{proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(str(lib)).airwave_mac_kmajor_pages
+    dll = ctypes.CDLL(str(lib))
+    fn = dll.airwave_mac_kmajor_pages
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    strided = hasattr(dll, "airwave_mac_kmajor_strided")
+    one = dll.airwave_mac_kmajor_strided if strided else dll.airwave_mac_kmajor
+    one.argtypes = mk.STRIDED_ARGTYPES if strided else (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    one.restype = ctypes.c_int
 
     def run(pages, bank):
         n, K, O, R = bank.shape
@@ -572,7 +657,21 @@ def load_build(source: str, defines=()):
             raise RuntimeError(f"{source} {defines}: cuda error {code}")
         return out
 
-    return run
+    return OtherBuild(run, functools.partial(bind_single, one, strided))
+
+
+def complete_trace(fn, calls: int, kernel: str, count=None,
+                   attempts: int = TRACE_ATTEMPTS) -> dict:
+    """traced(fn, calls, kernel, count), taken again (up to `attempts` in
+    all) while the trace lost launches: a torch.profiler trace of this
+    card may drop kernel records (one to thirteen in 200, now and then),
+    and a trace that drops them reads low. The result's "attempts" says
+    how many it took; the last is returned, complete or not."""
+    for attempt in range(1, attempts + 1):
+        trace = traced(fn, calls, kernel, count)
+        if trace["trace_complete"]:
+            break
+    return dict(trace, attempts=attempt)
 
 
 def traced(fn, calls: int, kernel: str, count=None, top: int = 8,
@@ -670,8 +769,8 @@ def device_phase() -> str:
 
 def build_phase(others=None) -> dict:
     """nvcc of the kernel, g++ of the assembler and nvcc of each other build
-    of mac_kmajor_pages (label -> (source, defines)), all started together.
-    Returns label -> that build's run(pages, bank)."""
+    of the MAC kernels (label -> (source, defines)), all started together.
+    Returns label -> that build's OtherBuild."""
     others = others or {}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2 + len(others)) as pool:
@@ -733,9 +832,10 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
                     plain_ms=cuda_ms(plain, 20),
                     library_ms=cuda_ms(library, 20), **bnd, **extra)
         if profiled:  # a launch-sized case: is it the host or the body?
-            trace = traced(kern, 50, kernel)
+            trace = complete_trace(kern, 50, kernel)
             case.update(profiled_device_ms=trace["kernel_ms"],
-                        traced_launches=trace["traced_launches"])
+                        traced_launches=trace["traced_launches"],
+                        trace_attempts=trace["attempts"])
             if not trace["trace_complete"]:
                 raise AssertionError(f"{name}: the trace holds "
                                      f"{trace['traced_launches']} of "
@@ -750,7 +850,7 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
         fields = {}
         for label, (run, exact) in builds.items():
             def other(run=run):
-                return run(pages, bank)
+                return run.pages(pages, bank)
             if exact and not torch.equal(other(), fused()):
                 raise AssertionError(f"build {label} differs from the kernel "
                                      f"at {len(pages)} pages {bank.shape}")
@@ -762,19 +862,135 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
                                  **({"equal": True} if exact else {}))
         return {"builds": fields} if fields else {}
 
+    def dual(kernel, shape, new, old, args, label="dual bank",
+             route="previous_route", extra=None):
+        equal, diff = torch.equal(new(), old()), (new() - old()).abs().max().item()
+        turns = [cuda_ms(f, 20) for f in (old, new, new, old)]
+        equal_plain = torch.equal(new(), args[0]())
+        measure(kernel, f"{label} {shape}", new, *args,
+                ms=(turns[1] + turns[2]) / 2, ms_turns=turns[1:3],
+                **{f"{route}_ms": (turns[0] + turns[3]) / 2,
+                   f"{route}_ms_turns": [turns[0], turns[3]],
+                   f"equals_{route}": equal,
+                   f"max_abs_diff_{route}": diff},
+                equals_plain=equal_plain, **(extra or {}))
+        if not equal:
+            raise AssertionError(f"{label} {shape}: the route differs from "
+                                 f"the {route} route by up to {diff}")
+
+    sms = mk._sm_count(dev.index or 0)
+
+    def single(label, fdl, h, new=None, old=None, other=None, args=None,
+               **extra):
+        """A single-block case (mac_kmajor at fdl [K, R, B], h [K, O, R] or
+        a rotated window): bit for bit the generic kernel and timed in
+        turns with it (generic, new, new, generic), in CUDA events through
+        the wrapper and, below GRAPH_TIMED_BELOW lanes, in device time
+        (graph_ms over graph_copies of the operands; the generic twin on a
+        contiguous h copied beforehand, so neither reading holds a copy).
+        Where mac_route takes the balanced or the tiled route at O = 4, 8
+        or 12, the other of the two too, bit for bit and in turns (route,
+        other, other, route; device time where graph-timed, else CUDA
+        events: the "other_route" field).
+        Each other build is held to it the same way (other(bind) -> a
+        launcher; by default bind(fdl, h)), a bare launcher of this build
+        beside a bare launcher of that one (bind_single), which an exact
+        build must equal bit for bit. `new`/`old` replace the call and its
+        generic twin and `args` the plain, float64, library calls and bound
+        (the per-page launches of 3 pages, timed in CUDA events only)."""
+        K, R, B = fdl.shape
+        O = h.shape[1]
+        hc = mk._flat_h(h).contiguous()  # the library call's operand
+        # Device time where the host's launch can bound CUDA events.
+        copies = (graph_copies(fdl, h) if new is None and B < GRAPH_TIMED_BELOW
+                  else None)
+        route = mk.mac_route(K, R, B, O, None, sms)
+        new = new or (lambda: mk.mac_kmajor(fdl, h))
+        old = old or (lambda: mk.mac_kmajor(fdl, h, generic=True))
+        other = other or (lambda bind: bind(fdl, h))
+        fields = {}
+        for tag, (run, exact) in builds.items():
+            call, mine = other(run.bind), other(this_bind)
+            if exact and not torch.equal(call(), new()):
+                raise AssertionError(f"build {tag} differs from the kernel "
+                                     f"at {label} K={K} R={R} O={O} B={B}")
+            turns = [cuda_ms(f, 20) for f in (call, mine, mine, call)]
+            fields[tag] = dict(ms=(turns[0] + turns[3]) / 2,
+                               ms_turns=[turns[0], turns[3]],
+                               kernel_ms_turns=turns[1:3],
+                               **({"equal": True} if exact else {}))
+            if copies is not None:
+                g_run = [run.bind(*c[:3]) for c in copies]
+                g_new = [this_bind(*c[:3]) for c in copies]
+                turns = [graph_ms(f) for f in (g_run, g_new, g_new, g_run)]
+                fields[tag].update(graph_ms=(turns[0] + turns[3]) / 2,
+                                   graph_ms_turns=[turns[0], turns[3]],
+                                   kernel_graph_ms_turns=turns[1:3])
+        if copies is not None:
+            g_new = [functools.partial(mk.mac_kmajor, f, w, out=y)
+                     for f, w, y, _ in copies]
+            g_old = [functools.partial(mk.mac_kmajor, f, c, out=y,
+                                       generic=True)
+                     for f, _, y, c in copies]
+            turns = [graph_ms(f) for f in (g_old, g_new, g_new, g_old)]
+            extra.update(graph_ms=(turns[1] + turns[2]) / 2,
+                         graph_ms_turns=turns[1:3],
+                         generic_graph_ms=(turns[0] + turns[3]) / 2,
+                         generic_graph_ms_turns=[turns[0], turns[3]],
+                         **copies_fields(copies))
+        if route.name in ("tiled", "balanced") and O in (4, 8, 12):
+            extra["other_route"] = vs_route(
+                fdl, h, copies, new,
+                "balanced" if route.name == "tiled" else "tiled")
+        dual("mac_kmajor", f"K={K} R={R} O={O} B={B}", new, old,
+             args or (lambda: mk.mac_kmajor_ref(fdl, h),
+                      lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
+                      lambda: torch.einsum("krb,kor->okb", fdl, hc),
+                      bound(4 * (fdl.numel() + hc.numel() + O * K * B),
+                            2 * K * R * O * B)),
+             label=label, route="generic",
+             extra=dict(mac_route=list(route),
+                        **({"builds": fields} if fields else {}), **extra))
+        del copies
+
+    def vs_route(fdl, h, copies, default, other) -> dict:
+        """Route `other` beside mac_route's choice (`default`, the call) at
+        this case: equal bit for bit, and in turns (default, other, other,
+        default)."""
+        K, R, B = fdl.shape
+        shape = mk.mac_route(K, R, B, h.shape[1], other, sms)
+        call = functools.partial(mk._mac_kmajor, fdl, h, route=other)
+        if not torch.equal(call(), default()):
+            raise AssertionError(f"route {shape} differs from mac_route's "
+                                 f"at K={K} R={R} B={B}")
+        if copies is None:
+            turns = [cuda_ms(f, 20) for f in (default, call, call, default)]
+            unit = "ms"
+        else:
+            g_default = [functools.partial(mk.mac_kmajor, f, w, out=y)
+                         for f, w, y, _ in copies]
+            g_other = [functools.partial(mk._mac_kmajor, f, w, out=y,
+                                         route=other)
+                       for f, w, y, _ in copies]
+            turns = [graph_ms(f) for f in (g_default, g_other, g_other,
+                                           g_default)]
+            unit = "graph_ms"
+        return {"route": list(shape), "equal": True,
+                unit: (turns[1] + turns[2]) / 2, f"{unit}_turns": turns[1:3],
+                f"default_{unit}": (turns[0] + turns[3]) / 2,
+                f"default_{unit}_turns": [turns[0], turns[3]]}
+
     # The bake, the ring pool, the serving ring pool, the render CLI's graph
     # path (one lane per input file), the planner's ring capacity pool and
-    # its steady-only capacity pool.
-    for B in (BATCH, POOL_LANES[1], SERVE_LANES, RENDER_FILES,
-              CAPACITY_LANES[1], STEADY_LANES[1]):
-        # R = S * P2 * 2 with P2 = 10 (9 partitions + 1), O = E * 2.
-        fdl, h = tensor((Kp, 40, B)), tensor((Kp, EARS * 2, 40))
-        measure("mac_kmajor", f"single_block K={Kp} R=40 O=4 B={B}",
-                lambda: mk.mac_kmajor(fdl, h), lambda: mk.mac_kmajor_ref(fdl, h),
-                lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
-                lambda: torch.einsum("krb,kor->okb", fdl, h),
-                bound(4 * (fdl.numel() + h.numel() + 4 * Kp * B),
-                      2 * Kp * 40 * 4 * B), profiled=B <= RENDER_FILES)
+    # its steady-only capacity pool; the serving soak's two groups of 516
+    # lanes (the 4320- and the 2000-tap bank). R = S * P2 * 2 with P2 = 10
+    # (9 partitions + 1) or 5, O = E * 2.
+    for B, R in ((BATCH, 40), (POOL_LANES[1], 40), (SERVE_LANES, 40),
+                 (RENDER_FILES, 40), (CAPACITY_LANES[1], 40),
+                 (STEADY_LANES[1], 40), (SERVE_SOAK_GROUP, 40),
+                 (SERVE_SOAK_GROUP, 20)):
+        fdl, h = tensor((Kp, R, B)), tensor((Kp, EARS * 2, R))
+        single("single_block", fdl, h, profiled=B <= RENDER_FILES)
         del fdl, h
 
     # Pages R = S*2*M, O = M*E*2 at M = 8: the headline's 3 pages at S = 2,
@@ -787,11 +1003,23 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
         bank = tensor((n, Kp, O, R))
         stacked = torch.stack(pages)  # for the one library call only
 
-        def per_page():
-            acc = mk.mac_kmajor(pages[0], bank[0])
+        def per_page(mac=mk.mac_kmajor):
+            acc = mac(pages[0], bank[0])
             for p, h in zip(pages[1:], bank[1:]):
-                mk.mac_kmajor(p, h, out=acc, accumulate=True)
+                mac(p, h, out=acc, accumulate=True)
             return acc
+
+        def per_page_bound(bind):
+            """per_page as bare launchers of one build (bind_single)."""
+            acc = torch.empty((O, Kp, B), device=dev)
+            launchers = [bind(pages[0], bank[0], acc)] + [
+                bind(p, h, acc, True) for p, h in zip(pages[1:], bank[1:])]
+
+            def run():
+                for launch in launchers:
+                    launch()
+                return acc
+            return run
 
         def fused():
             return mk.mac_kmajor_pages(pages, bank)
@@ -808,7 +1036,10 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
                 bound(4 * (n * Kp * R * B + bank.numel() + O * Kp * B),
                       2 * n * Kp * R * O * B))
         if n == 3:
-            measure("mac_kmajor", f"paged {shape}", per_page, *args)
+            single(f"paged {n} pages", pages[0], bank[0], new=per_page,
+                   old=lambda: per_page(functools.partial(mk.mac_kmajor,
+                                                          generic=True)),
+                   other=per_page_bound, args=args)
         measure("mac_kmajor_pages", f"paged fused {shape}", fused, *args,
                 **vs_builds(pages, bank, fused),
                 ms=(turns[1] + turns[2]) / 2, ms_turns=turns[1:3],
@@ -852,40 +1083,17 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
     # capacity pool) and O = 64 for the paged round (at 16384 lanes and the
     # capacity pool's widths). Each is timed in turns with another route of
     # the same kernel, which it must equal bit for bit: for mac_kmajor the
-    # generic kernel, the route the dispatch took before O = 8 had its
-    # instance ("previous_route" fields); for mac_kmajor_pages its own
-    # 16-column instance, the same kernel taking 16 output columns a pass
-    # ("columns16" fields; older runs' "previous_route" fields held the
+    # generic kernel, as every single-block case ("generic" fields; older
+    # runs' "previous_route" fields held it too); for mac_kmajor_pages its
+    # own 16-column instance, the same kernel taking 16 output columns a
+    # pass ("columns16" fields; older runs' "previous_route" fields held the
     # older kernel's own 16-column route). So are the paged capacity widths
     # at the steady O = 32, and the three pages of a 5.1 and a 7.1 input
     # (R = 96 and 128 at M = 8) at the bake's width.
-    def dual(kernel, shape, new, old, args, label="dual bank",
-             route="previous_route", extra=None):
-        equal, diff = torch.equal(new(), old()), (new() - old()).abs().max().item()
-        turns = [cuda_ms(f, 20) for f in (old, new, new, old)]
-        equal_plain = torch.equal(new(), args[0]())
-        measure(kernel, f"{label} {shape}", new, *args,
-                ms=(turns[1] + turns[2]) / 2, ms_turns=turns[1:3],
-                **{f"{route}_ms": (turns[0] + turns[3]) / 2,
-                   f"{route}_ms_turns": [turns[0], turns[3]],
-                   f"equals_{route}": equal,
-                   f"max_abs_diff_{route}": diff},
-                equals_plain=equal_plain, **(extra or {}))
-        if not equal:
-            raise AssertionError(f"{label} {shape}: the route differs from "
-                                 f"the {route} route by up to {diff}")
-
     R, O = 40, 2 * EARS * 2
     for B in (POOL_LANES[1], BATCH, CAPACITY_LANES[1]):
         fdl, h = tensor((Kp, R, B)), tensor((Kp, O, R))
-        dual("mac_kmajor", f"single_block K={Kp} R={R} O={O} B={B}",
-             lambda: mk.mac_kmajor(fdl, h),
-             lambda: mk.mac_kmajor(fdl, h, generic=True),
-             (lambda: mk.mac_kmajor_ref(fdl, h),
-              lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
-              lambda: torch.einsum("krb,kor->okb", fdl, h),
-              bound(4 * (fdl.numel() + h.numel() + O * Kp * B),
-                    2 * Kp * R * O * B)))
+        single("dual bank single_block", fdl, h)
         del fdl, h
         torch.cuda.empty_cache()
     n, steady = 3, M * EARS * 2
@@ -921,26 +1129,13 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
     # taps: P2 = 10, 3 pages) and the short one (SHORT_TAPS: P2 = 5, 2
     # pages), at the steady O, the fade round's uniform all-dual O and the
     # three-half fade bank's O (a second swap while a fade is pending; the
-    # long bank only, as the phases run it). O = 12 has its own instance,
-    # timed in turns with the generic kernel it replaces in the dispatch.
+    # long bank only, as the phases run it).
     ring_b = POOL_LANES[1] // GROUPS
     for R, halves in ((40, (1, 2, 3)), (20, (1, 2))):
         for h_count in halves:
             O = h_count * EARS * 2
             fdl, h = tensor((Kp, R, ring_b)), tensor((Kp, O, R))
-            shape = f"single_block K={Kp} R={R} O={O} B={ring_b}"
-            args = (lambda: mk.mac_kmajor_ref(fdl, h),
-                    lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
-                    lambda: torch.einsum("krb,kor->okb", fdl, h),
-                    bound(4 * (fdl.numel() + h.numel() + O * Kp * ring_b),
-                          2 * Kp * R * O * ring_b))
-            if O == 12:
-                dual("mac_kmajor", shape, lambda: mk.mac_kmajor(fdl, h),
-                     lambda: mk.mac_kmajor(fdl, h, generic=True), args,
-                     label="grouped 3-bank")
-            else:
-                measure("mac_kmajor", f"grouped {h_count}-bank {shape}",
-                        lambda: mk.mac_kmajor(fdl, h), *args)
+            single(f"grouped {h_count}-bank single_block", fdl, h)
             del fdl, h
     paged_b = POOL_LANES[M] // GROUPS
     R = SPEAKERS * 2 * M
@@ -969,24 +1164,24 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
 
     # The live runtime (demo): one lane, the bundled 4096-tap Neutral bank
     # as the single-block operand at cursor 0 (R from the bank, not 40), and
-    # the Neutral -> Room fade bank (O = 8) of a profile's HRIR swap.
+    # the Neutral -> Room fade bank (O = 8) of a profile's HRIR swap, each
+    # the rotated window of the doubled bank as conv_step passes it (read
+    # in place). The steady row also gives the wrapper's host time a call.
     neutral, room = (prepare_renderer(
         wavio.WAVData(SAMPLE_RATE, bundled.synthesize_hrir(style)),
         channel_maps.STEREO, SAMPLE_RATE, BLOCK, device=dev).conv_params
         for style in ("neutral", "room"))
     for params in (neutral, upols.xfade_conv_params(neutral, room)):
-        h = upols._rotated_operand(upols.single_block_bank(params, Kp),
-                                   0).contiguous()
-        O, R = h.shape[1], h.shape[2]
-        fdl = tensor((Kp, R, 1))
-        measure("mac_kmajor", f"demo K={Kp} R={R} O={O} B=1",
-                lambda: mk.mac_kmajor(fdl, h), lambda: mk.mac_kmajor_ref(fdl, h),
-                lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
-                lambda: torch.einsum("krb,kor->okb", fdl, h),
-                bound(4 * (fdl.numel() + h.numel() + O * Kp),
-                      2 * Kp * R * O), profiled=True, bank="bundled 4096-tap")
+        h = upols._rotated_window(upols.single_block_bank(params, Kp), 0)
+        fdl = tensor((Kp, h.shape[2:].numel(), 1))
+        extra = {}
+        if h.shape[1] == EARS * 2:
+            extra["host_us_per_call"] = host_us(lambda: mk.mac_kmajor(fdl, h))
+        single("demo", fdl, h, profiled=True, bank="bundled 4096-tap",
+               h_window=list(h.shape), **extra)
         del fdl, h
     launch_floor(dev, Kp)
+    route_crossover(tensor, Kp)
 
     # The mesh phase's per-shard widths: the ring pool's MESH_SHARDS shards
     # (steady and fade O), the grouped ring pool's units (GROUPS groups
@@ -1007,12 +1202,7 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
                           (20, 4, MULTIHOST_LANES // 2,
                            "multihost speaker shard")):
         fdl, h = tensor((Kp, R, B)), tensor((Kp, O, R))
-        measure("mac_kmajor", f"mesh {what} K={Kp} R={R} O={O} B={B}",
-                lambda: mk.mac_kmajor(fdl, h), lambda: mk.mac_kmajor_ref(fdl, h),
-                lambda: mk.mac_kmajor_ref(fdl.double(), h.double()),
-                lambda: torch.einsum("krb,kor->okb", fdl, h),
-                bound(4 * (fdl.numel() + h.numel() + O * Kp * B),
-                      2 * Kp * R * O * B))
+        single(f"mesh {what}", fdl, h)
         del fdl, h
     n, R, B = 3, SPEAKERS * 2 * M, POOL_LANES[M] // MESH_SHARDS
     for O in (M * EARS * 2, 2 * M * EARS * 2):
@@ -1032,12 +1222,183 @@ def kernel_phase(rng: np.random.Generator, dev: torch.device,
     return cases
 
 
+def graph_copies(fdl, h) -> list:
+    """(fdl, h, out, contiguous h) copies of a single-block case's operands
+    for graph_ms to rotate over: enough that the replays' working set is at
+    least twice the L2 (each call then reads the card's memory, not the
+    L2), at least 3 and at most GRAPH_COPIES_MAX. The first holds the
+    operands themselves; a copy of a window keeps its strides."""
+    K, R, B = fdl.shape
+    O = h.shape[1]
+    nbytes = 4 * (fdl.numel() + h.numel() + O * K * B)
+    n = min(GRAPH_COPIES_MAX, max(3, -(-2 * L2_BYTES // nbytes)))
+    copies = []
+    for i in range(n):
+        f = fdl if i == 0 else fdl.clone()
+        w = h if i == 0 else torch.empty_strided(
+            h.shape, h.stride(), device=h.device).copy_(h)
+        copies.append((f, w, torch.empty((O, K, B), device=fdl.device),
+                       mk._flat_h(w).contiguous()))
+    return copies
+
+
+def copies_fields(copies) -> dict:
+    """A graph-timed row's rotation: its copies, their working set, and
+    whether that set still fits twice the L2 (too small a case to leave
+    it: its device times are L2 times, and its share of the HBM bound is
+    not one)."""
+    fdl, h, out, _ = copies[0]
+    nbytes = 4 * (fdl.numel() + h.numel() + out.numel()) * len(copies)
+    return dict(graph_copies=len(copies), graph_working_set_bytes=nbytes,
+                graph_l2_resident=nbytes < 2 * L2_BYTES)
+
+
+def graph_ms(fns, reps: int = 20) -> float:
+    """Device ms a call: `reps` calls (at least one per function of `fns`,
+    taken in turn; one function or a list, each on its own copy of the
+    operands) captured in one CUDA graph, replayed 3 times between CUDA
+    events (no host launch between kernels, so a launch-sized kernel reads
+    its time on the card, not the host's)."""
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
+    reps = max(reps, len(fns))
+    for fn in fns:
+        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()  # a warm-up off the capture, as torch.cuda.graphs asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds a call of fn() over `calls` calls back to back,
+    with no synchronization inside the loop (the card drains behind)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+# One process's wrapper timing (wrapper_phase): argv[1] the root of a
+# checkout whose airwave_tpu_torch it imports, argv[2] the calls a reading.
+WRAPPER_CHILD = """
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from airwave_tpu_torch.kernels import mac_kmajor as mk
+calls = int(sys.argv[2])
+mk.build()
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+rows = []
+for B, R in ((1, 36), (516, 40)):
+    fdl = torch.randn((520, R, B), generator=gen, device=dev)
+    h = torch.randn((520, 4, R), generator=gen, device=dev)
+    out = torch.empty((4, 520, B), device=dev)
+    for _ in range(100):
+        mk.mac_kmajor(fdl, h, out=out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        mk.mac_kmajor(fdl, h, out=out)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        mk.mac_kmajor(fdl, h, out=out)
+    end.record()
+    torch.cuda.synchronize()
+    rows.append(dict(B=B, R=R, O=4, host_us=host / calls * 1e6,
+                     ms=start.elapsed_time(end) / calls))
+print(json.dumps(rows))
+"""
+
+
+def wrapper_phase(roots: dict, smi: str) -> None:
+    """The wrapper, not the kernel: mac_kmajor(fdl, h, out=out) at B=1 (R=36)
+    and B=516 (R=40), O=4, contiguous h, through this checkout's package and
+    through each baseline checkout's (label -> root), each in a process of
+    its own (WRAPPER_CHILD), in turns (the other, this, this, the other):
+    host µs a call over HOST_CALLS calls without a sync, and CUDA-event ms
+    a call over as many."""
+    def child(root):
+        proc = subprocess.run(
+            [sys.executable, "-c", WRAPPER_CHILD, root, str(HOST_CALLS)],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"wrapper timing in {root} failed:\n"
+                               f"{proc.stderr[-4000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    for label, root in roots.items():
+        turns = [child(r) for r in (root, REPO, REPO, root)]
+        rows = []
+        for i, row in enumerate(turns[1]):
+            rows.append(dict(
+                B=row["B"], R=row["R"], O=row["O"],
+                host_us=[turns[1][i]["host_us"], turns[2][i]["host_us"]],
+                ms=[turns[1][i]["ms"], turns[2][i]["ms"]],
+                **{f"{label}_host_us": [turns[0][i]["host_us"],
+                                        turns[3][i]["host_us"]],
+                   f"{label}_ms": [turns[0][i]["ms"], turns[3][i]["ms"]]}))
+        phase("wrapper", baseline=label, root=root, calls=HOST_CALLS,
+              rows=rows, device=smi)
+
+
+def route_crossover(tensor, Kp: int) -> None:
+    """mac_kmajor's small, tiled and balanced routes forced at the lane
+    counts around mac_route's threshold (SMALL_MAX_BATCH), R=40 O=4: equal
+    bit for bit,
+    each route's device ms a launch from a trace of 30 launches ("not
+    measured" where the trace lost launches) and from CUDA-graph replays
+    (graph_ms). Where the card's time crosses is where the small route
+    should stop."""
+    rows = []
+    for B in CROSSOVER_WIDTHS:
+        fdl, h = tensor((Kp, 40, B)), tensor((Kp, EARS * 2, 40))
+        calls = {route: functools.partial(mk._mac_kmajor, fdl, h, route=route)
+                 for route in ("small", "tiled", "balanced")}
+        if not (torch.equal(calls["small"](), calls["tiled"]())
+                and torch.equal(calls["small"](), calls["balanced"]())):
+            raise AssertionError(f"route_crossover B={B}: the routes differ")
+        row = dict(B=B, default=mk.mac_route(Kp, 40, B, EARS * 2).name)
+        for route, call in calls.items():
+            trace = complete_trace(call, 30, "mac_kmajor")
+            row[f"{route}_device_ms"] = trace["kernel_ms"]
+            row[f"{route}_traced_launches"] = trace["traced_launches"]
+            row[f"{route}_graph_ms"] = graph_ms(call)
+        rows.append(row)
+        del fdl, h
+    phase("route_crossover", R=40, O=EARS * 2,
+          small_max_batch=mk.SMALL_MAX_BATCH, rows=rows)
+
+
 def launch_floor(dev: torch.device, grid: int) -> dict:
     """The launch floor beside the launch-sized rows (B=1 and B=16): an
     empty kernel of the MAC kernels' own library (airwave_empty_launch) at
     mac_kmajor's <<<grid, 256>>>, in CUDA-event ms per launch over
     back-to-back launches (the host's launch rate) and in device ms from a
-    trace of 200 launches (traced), which must hold all 200."""
+    trace of 200 launches (complete_trace), which must hold all 200."""
     empty = mk._library()[0].airwave_empty_launch
     empty.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     empty.restype = ctypes.c_int
@@ -1050,11 +1411,13 @@ def launch_floor(dev: torch.device, grid: int) -> dict:
             raise RuntimeError(f"empty kernel: cuda error {code}")
         launched[0] += 1
 
-    trace = traced(launch, 200, "airwave_empty_kernel", lambda: launched[0])
+    trace = complete_trace(launch, 200, "airwave_empty_kernel",
+                           lambda: launched[0])
     floor = dict(kernel="launch_floor", case=f"empty kernel <<<{grid}, 256>>>",
-                 ms=cuda_ms(launch, 200),
+                 ms=cuda_ms(launch, 200), host_us_per_call=host_us(launch),
                  profiled_device_ms=trace["kernel_ms"],
-                 traced_launches=trace["traced_launches"])
+                 traced_launches=trace["traced_launches"],
+                 trace_attempts=trace["attempts"])
     phase("kernel", **floor)
     if not trace["trace_complete"]:
         raise AssertionError(f"launch floor: the trace holds "
@@ -1137,7 +1500,7 @@ def bake_phase(rng: np.random.Generator, dev: torch.device) -> dict:
         y, state = bake(hrir, x, SAMPLE_RATE, coeffs, preamp,
                         block_size=BLOCK, blocks_per_step=M, device=dev)
         seconds = time.perf_counter() - t0
-        launches[M] = {name: mk.launch_count(name) for name in KERNELS}
+        launches[M] = counts_now()
         del state
         finite = bool(np.isfinite(y).all())
         rms = float(np.sqrt(np.mean(np.square(y, dtype=np.float64))))
@@ -1152,7 +1515,7 @@ def bake_phase(rng: np.random.Generator, dev: torch.device) -> dict:
         used = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
         expected = {name: BAKE_BLOCKS // M if name == used else 0
                     for name in KERNELS}
-        if launches[M] != expected:
+        if by_kernel(launches[M]) != expected:
             raise AssertionError(f"M={M}: launches {launches[M]}, expected "
                                  f"{expected} (one per step)")
         outs[M] = y
@@ -1450,7 +1813,7 @@ def pool_phase(label: str, wav, dev: torch.device, M: int,
     for _ in range(full - full // 2):  # every lane fed: the "_id" variant
         run(every)
     seconds = time.perf_counter() - t0
-    launches = {name: mk.launch_count(name) for name in KERNELS}
+    launches = counts_now()
     stats = pool.stats()
     lane_err = [rel_rms(np.concatenate(outputs[b], -1),
                         reference_lane(hrir, np.concatenate(inputs[b], -1),
@@ -1467,7 +1830,7 @@ def pool_phase(label: str, wav, dev: torch.device, M: int,
         raise AssertionError(f"{label}: lane rel-RMS {lane_err} > {CHAIN_TOL}")
     used = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
     expected = {name: ragged + full if name == used else 0 for name in KERNELS}
-    if launches != expected:
+    if by_kernel(launches) != expected:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{expected} (one per round)")
     if stats["debt_rolls"] <= 0:
@@ -1629,6 +1992,30 @@ def launches_now() -> dict:
                       for o in (4, 8, 12, 32, 64, 96)
                       if mk.launch_count(name, columns=o)}}
             for name in KERNELS}
+
+
+def routes_now() -> dict:
+    """Each kernel's launches by route (mk.launch_routes)."""
+    return {name: mk.launch_routes(name) for name in KERNELS}
+
+
+def counts_now() -> dict:
+    """Each kernel's launch count by name, and under "routes" each one's
+    launches by route."""
+    return {**{name: mk.launch_count(name) for name in KERNELS},
+            "routes": routes_now()}
+
+
+def by_kernel(counts: dict) -> dict:
+    """{kernel: launches} of a counts_now() reading."""
+    return {name: counts[name] for name in KERNELS}
+
+
+def route_counts(counts, name: str) -> dict:
+    """{route: launches} of kernel `name` in a path's launch record ({}
+    where it holds no "routes")."""
+    return counts.get("routes", {}).get(name, {}) if isinstance(
+        counts, dict) else {}
 
 
 def engine_hotswap_phase(wavs, dev: torch.device, rng: np.random.Generator,
@@ -2539,7 +2926,7 @@ def serve_phase(label: str, files: ServeFiles, M: int, seed: int,
             load_proc.kill()
             load_proc.wait()
     wall = time.perf_counter() - t0
-    launches = {name: mk.launch_count(name) for name in KERNELS}
+    launches = counts_now()
     profiled = clock.remove()
     stats = server.stats()
     if not out.strip():
@@ -2847,7 +3234,7 @@ def render_phase(files: ServeFiles, rng: np.random.Generator,
                                  "--eq", files.eq, "--output-dir", out_dir,
                                  *extra])
         seconds = time.perf_counter() - t0
-        launches[label] = {name: mk.launch_count(name) for name in KERNELS}
+        launches[label] = counts_now()
         report = json.loads(captured.getvalue())
         skip = 0 if extra else EQ_RAMP + BLOCK
         errs = [rel_rms(wavio.load(report["rendered"][i]).audio[:, skip:],
@@ -2985,7 +3372,7 @@ def demo_phase(rng: np.random.Generator, smi: str) -> dict:
         finally:
             shell_app.build_demo = build
         cli_seconds = time.perf_counter() - t0
-        launches["demo_cli"] = launches_now()
+        launches["demo_cli"] = {**launches_now(), "routes": routes_now()}
     report = json.loads(out)
     phase("demo_cli", card=smi, rc=rc, report=report, seconds=cli_seconds,
           engine_blocks=len(blocks), launches=launches["demo_cli"])
@@ -3033,7 +3420,7 @@ def demo_phase(rng: np.random.Generator, smi: str) -> dict:
             demo.scheduler.advance(BLOCK / SAMPLE_RATE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches["demo"] = launches_now()
+        launches["demo"] = {**launches_now(), "routes": routes_now()}
         status = demo.state.status.value
         if demo.hrir.active_preset_id != room.id:
             raise AssertionError("demo: Room is not active after the swap")
@@ -3246,7 +3633,7 @@ def feeder_phase(wav, dev: torch.device, seed: int, smi: str) -> dict:
             fed.append(feeder.flush())
             torch.cuda.synchronize()
             fed_s = time.perf_counter() - t0
-            launches[label] = {name: mk.launch_count(name) for name in KERNELS}
+            launches[label] = counts_now()
             equal = all(torch.equal(a, b) for a, b in zip(fed, plain))
             differ = max(float((a - b).abs().max())
                          for a, b in zip(fed, plain))
@@ -3289,7 +3676,7 @@ def feeder_phase(wav, dev: torch.device, seed: int, smi: str) -> dict:
                                  f"{CHAIN_TOL}")
         used = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
         expected = {name: n if name == used else 0 for name in KERNELS}
-        if launches[label] != expected:
+        if by_kernel(launches[label]) != expected:
             raise AssertionError(f"{label}: launches {launches[label]}, "
                                  f"expected {expected} (one per step)")
     return launches
@@ -3746,8 +4133,8 @@ def baseline_rounds_phase(wav, dev: torch.device, baselines: dict,
 
             for label, run in baselines.items():
                 turns = []
-                for mac in (run, upols.mac_kmajor_pages,
-                            upols.mac_kmajor_pages, run):
+                for mac in (run.pages, upols.mac_kmajor_pages,
+                            upols.mac_kmajor_pages, run.pages):
                     with mock.patch.object(upols, "mac_kmajor_pages", mac):
                         turns.append(cuda_ms(one_round, 5))
                 rounds[f"{kind} vs {label}"] = dict(
@@ -4550,7 +4937,9 @@ def profile_chain_phase(smi: str) -> tuple:
     shape), then tools/profile_chain.profile of PROFILE_CALLS calls of
     PROFILE_BLOCKS blocks. Each path's rows (CUDA kernels by device time)
     must name its MAC kernel and count every launch of it in the traced
-    calls, the bake's also its GEMMs. Returns (launches by path, the
+    calls (the trace taken again while it drops records, up to
+    TRACE_ATTEMPTS in all, as in complete_trace), the bake's also its
+    GEMMs. Returns (launches by path, the
     checked cases)."""
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -4562,24 +4951,28 @@ def profile_chain_phase(smi: str) -> tuple:
                                                 pool=pool, device=dev)
         with CheckedMacs(path, limit=PROFILE_CHECKED) as checked:
             call().to("cpu")  # the warm-up, outside the trace
-        with tempfile.TemporaryDirectory() as tmp:
-            result = profile_chain.profile(call, dev, PROFILE_CALLS, blocks,
-                                           logdir=tmp)
-            trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
-        del call
-        launches[path] = {name: mk.launch_count(name) for name in KERNELS}
-        checks += checked.cases()
         kernel = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
-        rows = result["rows"]
-        mac_rows = [count for name, _, count in rows
-                    if kernel in name and (M > 1 or "pages" not in name)]
         want = PROFILE_CALLS * blocks // M
+        held = []  # traced launches of each attempt (see complete_trace)
+        while len(held) < TRACE_ATTEMPTS and want not in held:
+            with tempfile.TemporaryDirectory() as tmp:
+                result = profile_chain.profile(call, dev, PROFILE_CALLS,
+                                               blocks, logdir=tmp)
+                trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
+            rows = result["rows"]
+            mac_rows = [count for name, _, count in rows
+                        if kernel in name and (M > 1 or "pages" not in name)]
+            held.append(sum(mac_rows))
+        del call
+        launches[path] = counts_now()
+        checks += checked.cases()
         phase("profile_chain", card=smi, path=path, batch=batch,
               blocks_per_step=M, blocks=blocks, calls=PROFILE_CALLS,
               sum_listed_ms_per_block=result["sum_listed_ms_per_block"],
               device_ms_per_block=result["device_ms_per_block"],
               trace_bytes=trace_bytes, launches=launches[path],
               traced_mac_launches=sum(mac_rows), expected_traced=want,
+              trace_attempts=len(held), traced_by_attempt=held,
               checked_launches=checked.launches,
               top_rows=[[name[:110], us / 1e3 / result["blocks_total"],
                          count] for name, us, count in rows[:PROFILE_TOP]])
@@ -4638,7 +5031,7 @@ def serve_soak_phase(wav, short, dev: torch.device, smi: str) -> tuple:
             result = serve_soak.soak(pool, swaps, SERVE_SOAK_SECONDS,
                                      np.random.default_rng(23))
             fade_on_audio(pool, swaps)
-        launches[path] = {name: mk.launch_count(name) for name in KERNELS}
+        launches[path] = counts_now()
         by_columns = {f"{name} O={o}": mk.launch_count(name, columns=o)
                       for name in KERNELS for o in (4, 8, 32, 64)
                       if mk.launch_count(name, columns=o)}
@@ -4654,8 +5047,8 @@ def serve_soak_phase(wav, short, dev: torch.device, smi: str) -> tuple:
             raise AssertionError(f"{path}: the window ended before the "
                                  f"live-tensor baseline (wave 7)")
         kernel = "mac_kmajor_pages" if M > 1 else "mac_kmajor"
-        if not launches[path][kernel] or sum(launches[path].values()) != \
-                launches[path][kernel]:
+        if not launches[path][kernel] or sum(
+                by_kernel(launches[path]).values()) != launches[path][kernel]:
             raise AssertionError(f"{path}: launches {launches[path]}")
     torch.cuda.empty_cache()
     phase("serve_soak", card=smi, seconds=time.perf_counter() - t0)
@@ -4675,7 +5068,7 @@ def serve_scale_phase(dev: torch.device, smi: str) -> tuple:
     mk.reset_launch_count()
     with CheckedMacs("serve_scale", limit=SERVE_SOAK_CHECKED) as checked:
         result = serve_scale.measure(args, dev)
-    launches = {name: mk.launch_count(name) for name in KERNELS}
+    launches = counts_now()
     phase("serve_scale", card=smi, seconds=time.perf_counter() - t0,
           launches=launches, checked_launches=checked.launches, **result)
     load, server = result["load"], result["server"]
@@ -4694,10 +5087,12 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument(
         "--baseline", action="append", default=[], metavar="LABEL=SOURCE",
-        help="another mac_kmajor.cu (an earlier commit's) whose "
-             "mac_kmajor_pages every paged kernel case must equal bit for bit "
-             "and is timed in turns with, as are the paged capacity pool's "
-             "device rounds; may be repeated")
+        help="another mac_kmajor.cu (an earlier commit's), or the root of a "
+             "checkout of that commit, whose mac_kmajor_pages and mac_kmajor "
+             "every paged and single-block kernel case must equal bit for "
+             "bit and is timed in turns with, as are the paged capacity "
+             "pool's device rounds (and, for a checkout, its mac_kmajor "
+             "wrapper's host time); may be repeated")
     parser.add_argument(
         "--split", action="store_true",
         help="also time, at every paged kernel case, this mac_kmajor.cu "
@@ -4728,6 +5123,10 @@ def main() -> None:
     cases = kernel_phase(rng, dev, {label: (run, not others[label][1])
                                     for label, run in runs.items()})
     baselines = {label: runs[label] for label in runs if not others[label][1]}
+    roots = {label: source for label, (source, defines) in others.items()
+             if not defines and os.path.isdir(source)}
+    if roots:
+        wrapper_phase(roots, smi)
     if baselines:
         with tempfile.TemporaryDirectory() as tmp:
             baseline_rounds_phase(hrir_wav(args.seed, tmp), dev, baselines,
@@ -4828,6 +5227,12 @@ def main() -> None:
                     **{k: launches[k] for k in ("pool_grouped",
                                                 "pool_grouped_paged")}}.items()},
              **mesh_launches}
+    # The routes the in-process paths' launches took (mk.launch_routes; the
+    # child processes' launches are counted by kernel only).
+    recorded = {"bake_paged": launches[BLOCKS_PER_STEP],
+                "bake_single_block": launches[1], "pool_ring": launches["pool"],
+                "pool_paged": launches["pool_paged"], **launches,
+                **hotswap, **checkpoints}
     # Each kernel's headline case: the single block at B=16384 (bake M=1)
     # and the fused 3 pages (bake M=8 and the paged pool).
     entries = []
@@ -4837,11 +5242,15 @@ def main() -> None:
         checks = [c for c in path_checks if c["kernel"] == name]
         main_case = own[0]
         by_path = {path: counts[name] for path, counts in paths.items()}
+        by_route = {path: route_counts(recorded.get(path), name)
+                    for path in paths
+                    if route_counts(recorded.get(path), name)}
         entries.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES, "replaces_function": function,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
+            "launches_by_route": by_route,
             "max_abs_err": max(c["max_abs_err"] for c in own + checks),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

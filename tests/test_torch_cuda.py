@@ -101,10 +101,121 @@ def test_pages_kernel_wide_columns_equal_narrow(cuda_device, n, K, R, O, B):
     assert rel_rms(got.cpu().numpy(), plain) <= 1e-6
 
 
+ROUTE_WIDTHS = (1, 2, 3, 15, 16, 17, 31, 33, 48, 49, 255, 256, 257, 516, 1024,
+                1032, 2048, 8193)
+
+
+@pytest.mark.parametrize("O", [4, 8, 12, 32, 6])
+@pytest.mark.parametrize("B", ROUTE_WIDTHS)
+def test_every_route_equals_generic(cuda_device, B, O):
+    """Each route mac_kmajor can take at this shape (small where its CTA
+    fits shared memory, tiled where O has an instance, balanced where it
+    has one on a strided h, and mac_route's
+    default) equals the generic kernel bit for bit, with and without
+    accumulate, and is within 1e-6 of float64, at R = 20, 36, 40 and
+    K = 520, 24."""
+    for K in (520, 24):
+        for R in (20, 36, 40):
+            rng = np.random.default_rng(B * 1000 + O * 100 + R + K)
+            fdl = torch.tensor(rng.standard_normal((K, R, B), dtype=np.float32),
+                               device=cuda_device)
+            h = torch.tensor(rng.standard_normal((K, O, R), dtype=np.float32),
+                             device=cuda_device)
+            old = torch.tensor(rng.standard_normal((O, K, B), dtype=np.float32),
+                               device=cuda_device)
+            want = mk.mac_kmajor(fdl, h, generic=True)
+            want_acc = mk.mac_kmajor(fdl, h, out=old.clone(), accumulate=True,
+                                     generic=True)
+            routes = [None, "small", "tiled", "balanced"]
+            if O not in mk.TILED_COLUMNS:
+                routes.remove("tiled")
+            if O not in mk.TILED_COLUMNS or O == mk.TILED_CONTIGUOUS:
+                routes.remove("balanced")
+            if mk.small_smem_bytes(1, R, B, O) > 48 * 1024:
+                routes.remove("small")
+            for route in routes:
+                mk.reset_launch_count()
+                got = mk._mac_kmajor(fdl, h, route=route)
+                acc = mk._mac_kmajor(fdl, h, out=old.clone(), accumulate=True,
+                                     route=route)
+                torch.cuda.synchronize()
+                name = route or mk.mac_route(K, R, B, O).name
+                assert mk.launch_routes() == {name: 2}, (K, R, route)
+                assert torch.equal(got, want), (K, R, route)
+                assert torch.equal(acc, want_acc), (K, R, route)
+            ref = mk.mac_kmajor_ref(fdl.double(), h.double())
+            assert rel_rms(want.cpu().numpy(), ref.cpu().numpy()) <= 1e-6
+            assert rel_rms(want_acc.cpu().numpy(),
+                           (ref + old.double()).cpu().numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_rotated_window_in_place_equals_contiguous(cuda_device, S):
+    """The single-block step's rotated window of the doubled bank, read in
+    place (one launch, no copy of the operand), equals the kernel on
+    _rotated_operand's contiguous copy bit for bit at every cursor w, on the
+    small, the balanced and the tiled routes."""
+    rng = np.random.default_rng(S)
+    T = 512
+    params = upols.make_conv_params(
+        (rng.standard_normal((S, 2, 4320)) * 0.05).astype(np.float32), T,
+        device=cuda_device)
+    Kp = upols.padded_bin_count(T)
+    bank = upols.single_block_bank(params, Kp)
+    P2 = params.partition_count
+    for B in (1, 16, 1032):
+        fdl = torch.randn((Kp, S * P2 * 2, B), device=cuda_device)
+        for w in range(P2):
+            window = upols._rotated_window(bank, w)
+            copy = upols._rotated_operand(bank, w)
+            mk.reset_launch_count()
+            got = mk.mac_kmajor(fdl, window)
+            assert mk.launch_count() == 1
+            assert mk.launch_routes() == {
+                mk.mac_route(Kp, fdl.shape[1], B, 4).name: 1}
+            assert torch.equal(got, mk.mac_kmajor(fdl, copy)), (B, w)
+            assert torch.equal(got, mk.mac_kmajor(fdl, window, generic=True))
+            for route in ("tiled", "balanced"):
+                assert torch.equal(got, mk._mac_kmajor(fdl, window,
+                                                       route=route))
+        torch.cuda.synchronize()
+
+
+def test_balanced_route_on_unaligned_rows(cuda_device):
+    """fdl and out at a 4-byte offset (contiguous, B % 4 == 0): the balanced
+    route takes one lane a thread and equals the generic kernel; a forced
+    four-lane shape is refused by the kernel (a launch error, no launch
+    counted, no fallback)."""
+    K, R, B, O = 24, 40, 1032, 4
+    rng = np.random.default_rng(7)
+    flat = torch.tensor(rng.standard_normal(K * R * B + 1, dtype=np.float32),
+                        device=cuda_device)
+    fdl = flat[1:].view(K, R, B)
+    h = torch.tensor(rng.standard_normal((K, O, R), dtype=np.float32),
+                     device=cuda_device)
+    out = torch.empty(O * K * B + 1, device=cuda_device)[1:].view(O, K, B)
+    want = mk.mac_kmajor(fdl, h, generic=True)
+    mk.reset_launch_count()
+    got = mk._mac_kmajor(fdl, h, out=out, route="balanced")
+    assert mk.launch_routes() == {"balanced": 1}
+    assert torch.equal(got, want)
+    four = mk.mac_route(K, R, B, O, "balanced")
+    assert four.width == 4 * four.threads
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mk._mac_kmajor(fdl, h, out=out, route=four)
+    assert mk.launch_count() == 1
+
+
 def test_kernel_rejects_non_contiguous(cuda_device):
     fdl = torch.zeros((8, 5, 6), device=cuda_device).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         mk.mac_kmajor(fdl, torch.zeros((8, 4, 6), device=cuda_device))
+    # h whose rows are not runs of contiguous floats: refused, no launch.
+    h = torch.zeros((8, 6, 4), device=cuda_device).transpose(1, 2)
+    mk.reset_launch_count()
+    with pytest.raises(ValueError, match="runs of contiguous floats"):
+        mk.mac_kmajor(torch.zeros((8, 6, 5), device=cuda_device), h)
+    assert mk.launch_count() == 0
 
 
 @pytest.mark.parametrize("n,K,R,O,B", [

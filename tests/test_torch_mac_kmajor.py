@@ -228,3 +228,152 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         mk.build()
+
+
+def _fade_bank(S, taps=300, T=64, Kp=72, seed=0):
+    rng = np.random.default_rng(seed + S)
+    hrir = (rng.standard_normal((S, 2, taps)) * 0.2).astype(np.float32)
+    params = tupols.make_conv_params(hrir, T, device="cpu")
+    return tupols.single_block_bank(params, Kp), params.partition_count
+
+
+@pytest.mark.parametrize("S", [1, 2, 3])
+def test_plain_version_reads_the_rotated_window(S):
+    """The wrapper takes the single-block step's rotated window [Kp, O, S,
+    P2, C] as it lies (a view of the doubled bank, not contiguous); on the
+    CPU the plain version contracts it bit for bit as the contiguous copy
+    _rotated_operand makes, at every cursor w."""
+    bank, P2 = _fade_bank(S)
+    Kp, O = bank.shape[:2]
+    R = S * P2 * 2
+    fdl = torch.from_numpy(np.random.default_rng(S).standard_normal(
+        (Kp, R, 5), dtype=np.float32))
+    for w in range(P2):
+        window = tupols._rotated_window(bank, w)
+        assert window.shape == (Kp, O, S, P2, 2)
+        assert window.data_ptr() == bank[:, :, :, P2 - 1 - w].data_ptr()
+        assert not window.is_contiguous()
+        assert mk.h_rows(window) == (bank.stride(0), bank.stride(1),
+                                     bank.stride(2), P2 * 2)
+        copy = tupols._rotated_operand(bank, w)
+        assert torch.equal(mk.mac_kmajor_ref(fdl, window),
+                           mk.mac_kmajor_ref(fdl, copy))
+        assert torch.equal(mk.mac_kmajor(fdl, window),
+                           mk.mac_kmajor(fdl, copy))
+
+
+@pytest.mark.parametrize("case", ["r_strided", "c_strided", "p_strided",
+                                  "four_axes", "r_mismatch"])
+def test_wrapper_rejects_h_layouts_it_cannot_read(case):
+    """A layout whose rows are not runs of contiguous floats raises
+    ValueError before the device branch, with the message, on the CPU as
+    on the card."""
+    bank, P2 = _fade_bank(2)
+    fdl = torch.zeros((72, 2 * P2 * 2, 3))
+    h = {"r_strided": torch.zeros((72, 2 * P2 * 2, 4)).transpose(1, 2),
+         "c_strided": tupols._rotated_window(bank, 0).transpose(3, 4),
+         "p_strided": bank[:, :, :, ::2],
+         "four_axes": torch.zeros((72, 4, 2, P2 * 2)),
+         "r_mismatch": tupols._rotated_window(bank, 0)[:, :, :, 1:]}[case]
+    if case == "p_strided":
+        fdl = torch.zeros((72, 2 * P2 * 2, 3))
+    match = {"four_axes": "window", "r_mismatch": "does not match"}.get(
+        case, "runs of contiguous floats")
+    with pytest.raises(ValueError, match=match):
+        mk.mac_kmajor(fdl, h)
+
+
+@pytest.mark.parametrize("B,O,want", [
+    (1, 4, ("small", 2, 256)),         # live engine: 2 bins a CTA (260 CTAs)
+    (1, 8, ("small", 2, 256)),         # its fade block
+    (16, 4, ("small", 2, 256)),        # render graph: 2 bins, 128 outputs
+    (16, 32, ("small", 1, 256)),       # 512 outputs: two a thread
+    (16, 6, ("small", 2, 256)),        # any O
+    (48, 4, ("small", 1, 256)),        # the widest small batch by default
+    (49, 4, ("tiled", 256, 256)),      # B % 4 != 0: one tile
+    (52, 4, ("tiled", 256, 256)),      # below BALANCED_MIN_BATCH
+    (512, 4, ("balanced", 512, 128)),  # BALANCED_MIN_BATCH: one tile
+    (516, 4, ("balanced", 640, 160)),  # serving soak's groups
+    (1032, 4, ("balanced", 640, 160)),  # serve ring
+    (1032, 8, ("balanced", 640, 160)),  # its fade
+    (1032, 32, ("tiled", 256, 256)),   # the per-page baseline's O
+    (2048, 4, ("balanced", 1024, 256)),  # grouped ring
+    (2048, 12, ("tiled", 256, 256)),   # the three-half fade bank
+    (16_384, 4, ("balanced", 1024, 256)),  # the bake at M = 1
+    (150_129, 4, ("tiled", 256, 256)),  # ring capacity (B % 4 == 1)
+    (150_129, 8, ("tiled", 256, 256)),
+    (1032, 6, ("generic", 256, 256)),  # no tiled instance at O = 6
+])
+def test_mac_route_at_the_paths_widths(B, O, want):
+    """mac_route, plain Python: small up to SMALL_MAX_BATCH lanes, with
+    about two CTAs per SM (520 bins on 132 SMs: 2 a CTA) within
+    SMALL_ITEMS outputs and 48 KB; above it balanced at O = 4 and 8 where
+    B % 4 == 0 from BALANCED_MIN_BATCH lanes, tiled where O has an
+    instance; generic where it has none."""
+    route = mk.mac_route(520, 40, B, O)
+    assert tuple(route) == want
+    if route.name == "small":
+        assert mk.small_smem_bytes(route.width, 40, B, O) <= 48 * 1024
+        assert route.width == 1 or route.width * O * B <= mk.SMALL_ITEMS
+
+
+def test_mac_route_forced_and_refused():
+    assert mk.mac_route(520, 40, 256, 4, "small") == ("small", 1, 256)
+    assert mk.mac_route(520, 40, 1, 4, "generic") == ("generic", 256, 256)
+    assert mk.mac_route(520, 40, 1, 4, "tiled") == ("tiled", 256, 256)
+    # Rows not 16-byte aligned: tiled, not four lanes a thread.
+    assert mk.mac_route(520, 40, 1032, 4, aligned=False).name == "tiled"
+    # Fewer SMs, more bins a CTA: 9 bins of 16 outputs fit beside the rows.
+    assert mk.mac_route(520, 40, 1, 4, sms=32).width == 9
+    with pytest.raises(ValueError, match="shared memory"):
+        mk.mac_route(520, 200, 64, 4, "small")
+    with pytest.raises(ValueError, match="tiled route"):
+        mk.mac_route(520, 40, 1032, 6, "tiled")
+    with pytest.raises(ValueError, match="balanced route"):
+        mk.mac_route(520, 40, 1032, 6, "balanced")
+    with pytest.raises(ValueError, match="balanced route"):
+        mk.mac_route(520, 40, 1032, 32, "balanced")  # the fixed instance
+    with pytest.raises(ValueError, match="route"):
+        mk.mac_route(520, 40, 1032, 4, "fast")
+    fdl, h = torch.zeros((8, 6, 5)), torch.zeros((8, 4, 6))
+    with pytest.raises(ValueError, match="route"):
+        mk._mac_kmajor(fdl, h, route="fast")
+    # The public wrapper forces one route only, generic=True.
+    with pytest.raises(TypeError):
+        mk.mac_kmajor(fdl, h, route="small")
+
+
+@pytest.mark.parametrize("B,O,want", [
+    (1, 4, ("balanced", 32, 32)),        # B % 4 != 0: one lane a thread
+    (16, 4, ("balanced", 128, 32)),      # four lanes a thread, one warp
+    (516, 4, ("balanced", 640, 160)),    # one tile of 129 float4 lanes
+    (1032, 4, ("balanced", 640, 160)),   # two of 129, not 5 of 256 (8 last)
+    (1032, 12, ("balanced", 640, 160)),  # O = 12: forced only
+    (2048, 12, ("balanced", 1024, 256)),
+    (150_129, 4, ("balanced", 256, 256)),  # odd: 587 tiles of 256
+])
+def test_balanced_route_splits_b_evenly(B, O, want):
+    """mac_route's balanced shape, plain Python: the fewest tiles of at
+    most BALANCED_THREADS threads, V = 4 lanes a thread where B % 4 == 0
+    (and the rows are 16-byte aligned), each tile rounded up to whole
+    warps, so no tile pads more than one warp of lanes."""
+    route = mk.mac_route(520, 40, B, O, "balanced")
+    assert tuple(route) == want
+    v = route.width // route.threads
+    assert v in (1, 4) and route.threads % 32 == 0
+    assert route.threads <= mk.BALANCED_THREADS
+    tiles = -(-B // route.width)
+    assert tiles * route.width - B < 32 * v * tiles
+    unaligned = mk.mac_route(520, 40, B, O, "balanced", aligned=False)
+    assert unaligned.width == unaligned.threads  # one lane a thread
+
+
+@pytest.mark.parametrize("route", mk.ROUTES)
+def test_every_route_runs_the_plain_version_on_cpu(route):
+    rng = np.random.default_rng(len(route))
+    fdl = torch.from_numpy(rng.standard_normal((8, 6, 5), dtype=np.float32))
+    h = torch.from_numpy(rng.standard_normal((8, 4, 6), dtype=np.float32))
+    mk.reset_launch_count()
+    assert torch.equal(mk._mac_kmajor(fdl, h, route=route),
+                       mk.mac_kmajor_ref(fdl, h))
+    assert mk.launch_count() == 0 and mk.launch_routes() == {}

@@ -358,3 +358,50 @@ def test_rotated_operand_is_contiguous(S):
         assert h.is_contiguous()
         want = bank[:, :, :, P2 - 1 - w:2 * P2 - 1 - w].reshape(h.shape)
         torch.testing.assert_close(h, want, rtol=0, atol=0)
+
+
+def test_conv_step_reads_the_rotated_window_in_place(monkeypatch):
+    """conv_step hands the MAC the rotated window of the doubled bank as it
+    lies (a [Kp, O, S, P2, C] view sharing the bank's storage, no copy) at
+    every cursor; through a partition wrap (S=2, an odd P2 = 5, pad_to_pow2
+    off) its output and carry stay within 1e-6 of the JAX conv_step (the
+    MAC lowered as `dot` and as the Pallas kernel in interpret mode) on the
+    same seeded inputs."""
+    rng = np.random.default_rng(12)
+    T, L, B, S = 64, 200, 3, 2
+    hrir = (rng.standard_normal((S, 2, L)) * 0.3).astype(np.float32)
+    pt = tupols.make_conv_params(hrir, T, pad_to_pow2=False, device="cpu")
+    P2 = pt.partition_count
+    assert P2 == 5
+    Kp = tupols.padded_bin_count(T)
+    bank, synth = tupols.single_block_bank(pt, Kp), tupols.project_weights(pt, Kp)
+    seen = []
+    mac = tupols.mac_kmajor
+
+    def recording(fdl, h, out=None, **kw):
+        seen.append((tuple(h.shape), h.data_ptr(), h.untyped_storage().data_ptr()))
+        return mac(fdl, h, out=out, **kw)
+
+    monkeypatch.setattr(tupols, "mac_kmajor", recording)
+    n_blocks = 3 * P2 + 2
+    xs = [rng.standard_normal((B, S, T)).astype(np.float32)
+          for _ in range(n_blocks)]
+    st = tupols.make_conv_state(B, S, P2, T, device="cpu")
+    ys = []
+    for x in xs:
+        st, y = tupols.conv_step(pt, st, torch.from_numpy(x), bank, synth)
+        ys.append(y.numpy())
+    got = np.concatenate(ys, -1)
+    row = bank.stride(3) * 4  # bytes a partition slot of the bank
+    assert [shape for shape, _, _ in seen] == [(Kp, 4, S, P2, 2)] * n_blocks
+    assert all(storage == bank.untyped_storage().data_ptr()
+               for _, _, storage in seen)
+    assert [(ptr - bank.data_ptr()) // row for _, ptr, _ in seen] == [
+        P2 - 1 - t % P2 for t in range(n_blocks)]
+
+    pj = jupols.make_conv_params(hrir, T, pad_to_pow2=False)
+    for impl in ("dot", "pallas"):
+        sj, ref = _jax_steps(impl, pj, B, S, T, xs)
+        assert rel_rms(got, ref) <= PORT_TOL, impl
+        assert st.write_pos == int(sj.write_pos) == n_blocks % P2
+        assert rel_rms(st.fdl.numpy(), np.asarray(sj.fdl)) <= PORT_TOL
