@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from airwave_tpu_torch.utils.profiling import BUILD_KERNEL_LIBRARY, span
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -57,29 +59,31 @@ def load(source_name: str) -> tuple:
     """(ctypes.CDLL, build log) for csrc/<source_name>. The log holds nvcc's
     output (ptxas register and shared-memory report) when this call built
     the library, and is empty when it was already built."""
-    src = CSRC_DIR / source_name
-    nvcc = find_nvcc()
-    version = subprocess.run([nvcc, "--version"], capture_output=True,
-                             text=True, check=True).stdout
-    key = hashlib.sha256(
-        src.read_bytes() + version.encode() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"{src.stem}-{key}.so"
-    log = ""
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # Build under a private name and rename: concurrent first uses in
-        # several processes never load a half-written library.
-        tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise KernelBuildError(
-                f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
-        os.replace(tmp, lib)
-    try:
-        return ctypes.CDLL(str(lib)), log
-    except OSError as err:
-        raise KernelBuildError(f"cannot load {lib}: {err}") from err
+    with span(BUILD_KERNEL_LIBRARY):
+        src = CSRC_DIR / source_name
+        nvcc = find_nvcc()
+        version = subprocess.run([nvcc, "--version"], capture_output=True,
+                                 text=True, check=True).stdout
+        key = hashlib.sha256(
+            src.read_bytes() + version.encode() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        lib = BUILD_DIR / f"{src.stem}-{key}.so"
+        log = ""
+        if not lib.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # Build under a private name and rename: concurrent first uses in
+            # several processes never load a half-written library.
+            tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise KernelBuildError(
+                    f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
+            os.replace(tmp, lib)
+        try:
+            return ctypes.CDLL(str(lib)), log
+        except OSError as err:
+            raise KernelBuildError(f"cannot load {lib}: {err}") from err

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from airwave_tpu_torch.kernels import _build
+from airwave_tpu_torch.utils.profiling import BUILD_MAC_PLAN, span
 
 SOURCE = "mac_kmajor.cu"
 _MAX_SMEM_BYTES = 48 * 1024  # h[k] staged per CTA without opt-in smem
@@ -63,6 +64,13 @@ BALANCED_MIN_BATCH = 512
 BALANCED_THREADS = 256   # the most threads of a balanced-route CTA
 THREADS = 256            # threads of a CTA, every other route
 H100_SMS = 132
+
+# Each launch's span (utils/profiling.span): by route or by columns per
+# pass, and the plain versions' on CPU tensors.
+SINGLE_SPANS = {r: "airwave.mac.single." + r for r in ROUTES}
+PAGES_SPANS = {c: f"airwave.mac.pages.columns{c}" for c in PAGES_COLUMNS}
+SINGLE_REF_SPAN = "airwave.mac.single.ref"
+PAGES_REF_SPAN = "airwave.mac.pages.ref"
 
 _launches = {"mac_kmajor": 0, "mac_kmajor_pages": 0}
 _launches_by_columns: Counter = Counter()  # (kernel, O) -> launches
@@ -319,13 +327,15 @@ def mac_kmajor(fdl: torch.Tensor, h: torch.Tensor,
 
 
 class _Plan(NamedTuple):
-    """A launch's route, whether h is copied contiguous first, and the
+    """A launch's route, whether h is copied contiguous first, the
     entry point's `launch` integers (K, R, B, O, h_k, h_o, h_s, seg, route
-    id, width, threads, device) in an array held here, at `address`."""
+    id, width, threads, device) in an array held here, at `address`, and
+    the launch's span name."""
     route: MacRoute
     copy: bool
     launch: ctypes.Array
     address: int
+    span: str
 
 
 @functools.lru_cache(maxsize=1024)
@@ -338,21 +348,23 @@ def _plan(K: int, R: int, B: int, O: int, rows: tuple, route, index: int,
     as one run (the generic kernel; the tiled route at O =
     TILED_CONTIGUOUS). Cached, so a call of the wrapper does no more of
     this than a lookup. ValueError for a shape the kernels cannot take."""
-    if O * R * 4 > _MAX_SMEM_BYTES:
-        raise ValueError(f"h[k] of {O}x{R} floats exceeds the kernel's "
-                         f"{_MAX_SMEM_BYTES} B of shared memory")
-    if not (0 < K <= _MAX_GRID_Y and B > 0 and R > 0 and O > 0):
-        raise ValueError(f"unsupported shape K={K} R={R} B={B} O={O}")
-    if not isinstance(route, MacRoute):
-        route = mac_route(K, R, B, O, route, _sm_count(index), aligned)
-    copy = not contiguous and (route.name == "generic"
-                               or O == TILED_CONTIGUOUS)
-    if copy:
-        rows = (O * R, R, R, R)  # h_rows of the [K, O, R] copy
-    launch = (ctypes.c_longlong * 12)(
-        K, R, B, O, *rows, _ROUTE_IDS[route.name], route.width,
-        route.threads, index)
-    return _Plan(route, copy, launch, ctypes.addressof(launch))
+    with span(BUILD_MAC_PLAN):
+        if O * R * 4 > _MAX_SMEM_BYTES:
+            raise ValueError(f"h[k] of {O}x{R} floats exceeds the kernel's "
+                             f"{_MAX_SMEM_BYTES} B of shared memory")
+        if not (0 < K <= _MAX_GRID_Y and B > 0 and R > 0 and O > 0):
+            raise ValueError(f"unsupported shape K={K} R={R} B={B} O={O}")
+        if not isinstance(route, MacRoute):
+            route = mac_route(K, R, B, O, route, _sm_count(index), aligned)
+        copy = not contiguous and (route.name == "generic"
+                                   or O == TILED_CONTIGUOUS)
+        if copy:
+            rows = (O * R, R, R, R)  # h_rows of the [K, O, R] copy
+        launch = (ctypes.c_longlong * 12)(
+            K, R, B, O, *rows, _ROUTE_IDS[route.name], route.width,
+            route.threads, index)
+        return _Plan(route, copy, launch, ctypes.addressof(launch),
+                     SINGLE_SPANS[route.name])
 
 
 def _mac_kmajor(fdl, h, out=None, accumulate=False,
@@ -365,10 +377,11 @@ def _mac_kmajor(fdl, h, out=None, accumulate=False,
         raise ValueError(f"route must be None or one of {ROUTES}, got "
                          f"{route!r}")
     if fdl.device.type == "cpu":
-        y = mac_kmajor_ref(fdl, h)
-        if out is None:
-            return y.contiguous()  # the kernel's layout, which callers view
-        return out.add_(y) if accumulate else out.copy_(y)
+        with span(SINGLE_REF_SPAN):
+            y = mac_kmajor_ref(fdl, h)
+            if out is None:
+                return y.contiguous()  # the kernel's layout, callers view it
+            return out.add_(y) if accumulate else out.copy_(y)
     if fdl.device.type != "cuda":
         raise ValueError(f"unsupported device {fdl.device}")
     if out is None:
@@ -378,13 +391,14 @@ def _mac_kmajor(fdl, h, out=None, accumulate=False,
     plan = _plan(K, R, B, O, rows, route, fdl.device.index or 0,
                  (fdl_ptr | out_ptr) % 16 == 0,
                  h.dim() == 3 and h.is_contiguous())
-    if plan.copy:
-        h = _flat_h(h).contiguous()  # these kernels read h[k] as one run
-    lib, _ = _library()
-    code = lib.airwave_mac_kmajor_strided(
-        fdl_ptr, h.data_ptr(), out_ptr, plan.address, int(accumulate),
-        torch.cuda.current_stream(fdl.device).cuda_stream)
-    _check_launch(lib, code, "mac_kmajor", O, plan.route.name)
+    with span(plan.span):
+        if plan.copy:
+            h = _flat_h(h).contiguous()  # these kernels read h[k] as one run
+        lib, _ = _library()
+        code = lib.airwave_mac_kmajor_strided(
+            fdl_ptr, h.data_ptr(), out_ptr, plan.address, int(accumulate),
+            torch.cuda.current_stream(fdl.device).cuda_stream)
+        _check_launch(lib, code, "mac_kmajor", O, plan.route.name)
     return out
 
 
@@ -441,8 +455,9 @@ def mac_kmajor_pages(pages, bank: torch.Tensor,
     K, R, B, O = _check_pages(pages, bank, out)
     dev = bank.device
     if dev.type == "cpu":
-        y = mac_kmajor_pages_ref(pages, bank)
-        return y.contiguous() if out is None else out.copy_(y)
+        with span(PAGES_REF_SPAN):
+            y = mac_kmajor_pages_ref(pages, bank)
+            return y.contiguous() if out is None else out.copy_(y)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if out is None:
@@ -452,12 +467,13 @@ def mac_kmajor_pages(pages, bank: torch.Tensor,
     if not (K > 0 and B > 0 and R > 0 and O > 0):
         raise ValueError(f"unsupported shape K={K} R={R} B={B} O={O}")
     columns = columns or pages_columns(O)
-    lib, _ = _library()
-    ptrs = (ctypes.c_void_p * len(pages))(*(p.data_ptr() for p in pages))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.airwave_mac_kmajor_pages(
-        ptrs, len(pages), bank.data_ptr(), out.data_ptr(), K, R, B, O,
-        columns, dev.index or 0, stream,
-    )
-    _check_launch(lib, code, "mac_kmajor_pages", O, f"columns{columns}")
+    with span(PAGES_SPANS[columns]):
+        lib, _ = _library()
+        ptrs = (ctypes.c_void_p * len(pages))(*(p.data_ptr() for p in pages))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.airwave_mac_kmajor_pages(
+            ptrs, len(pages), bank.data_ptr(), out.data_ptr(), K, R, B, O,
+            columns, dev.index or 0, stream,
+        )
+        _check_launch(lib, code, "mac_kmajor_pages", O, f"columns{columns}")
     return out

@@ -28,6 +28,7 @@ from airwave_tpu_torch.graph.eq_runtime import EqualizerRuntime
 from airwave_tpu_torch.graph.renderer import RendererState
 from airwave_tpu_torch.io.apo import EqualizerDefinition
 from airwave_tpu_torch.ops import eq_block, upols
+from airwave_tpu_torch.utils.profiling import CHAIN_STEP, CONV_SYNTHESIS, span
 
 
 class ChainState(NamedTuple):
@@ -91,21 +92,25 @@ def chain_step_fn(
     (upols.conv_step), unlike the functional reference: the state passed in
     is consumed, and the returned state holds the same fdl tensor. Reuse
     only the returned state, or pass in a clone of the delay line."""
-    conv_state, eq_state = state
-    if spatial_enabled:
-        bank, synth = (operands.bank, operands.synth) if operands else (None, None)
-        conv_state, y = upols.conv_step(conv_params, conv_state, x, bank, synth)
-        if xfade_ramp is not None:
-            y = upols.xfade_blend(y, xfade_ramp)
-    elif x.shape[1] >= 2:
-        y = x[:, :2, :]
-    else:
-        y = torch.cat([x, x], dim=1)
-    if eq_enabled:
-        eq_state, y = eq_block.eq_step(
-            eq_from, eq_to, eq_state, y, transition_length, eq_crossfading
-        )
-    return ChainState(conv_state, eq_state), y
+    with span(CHAIN_STEP):
+        conv_state, eq_state = state
+        if spatial_enabled:
+            bank, synth = ((operands.bank, operands.synth) if operands
+                           else (None, None))
+            conv_state, y = upols.conv_step(conv_params, conv_state, x, bank,
+                                            synth)
+            if xfade_ramp is not None:
+                with span(CONV_SYNTHESIS):
+                    y = upols.xfade_blend(y, xfade_ramp)
+        elif x.shape[1] >= 2:
+            y = x[:, :2, :]
+        else:
+            y = torch.cat([x, x], dim=1)
+        if eq_enabled:
+            eq_state, y = eq_block.eq_step(
+                eq_from, eq_to, eq_state, y, transition_length, eq_crossfading
+            )
+        return ChainState(conv_state, eq_state), y
 
 
 def chain_step_multi_fn(
@@ -127,26 +132,28 @@ def chain_step_multi_fn(
     for block M chain_step_fn calls. In steady state (eq_crossfading=False)
     the EQ's FIR and state drive are folded into the synthesis weights and
     only its state recurrence is left (eq_block.eq_folded_paged_round)."""
-    conv_state, eq_state = state
-    bank = operands.bank if operands else None
-    if eq_enabled and not eq_crossfading:
-        conv_state, eq_state, y = eq_block.eq_folded_paged_round(
-            conv_params, eq_to, conv_state, eq_state, x, bank,
-            operands.synth_folded if operands else None,
-        )
-        return ChainState(conv_state, eq_state), y
-    conv_state, y = upols.conv_step_paged(
-        conv_params, conv_state, x, bank, operands.synth if operands else None)
-    if eq_enabled:
-        outs = []
-        for m in range(x.shape[2]):
-            eq_state, ym = eq_block.eq_step(
-                eq_from, eq_to, eq_state, y[:, m], transition_length,
-                eq_crossfading,
+    with span(CHAIN_STEP):
+        conv_state, eq_state = state
+        bank = operands.bank if operands else None
+        if eq_enabled and not eq_crossfading:
+            conv_state, eq_state, y = eq_block.eq_folded_paged_round(
+                conv_params, eq_to, conv_state, eq_state, x, bank,
+                operands.synth_folded if operands else None,
             )
-            outs.append(ym)
-        y = torch.stack(outs, dim=1)
-    return ChainState(conv_state, eq_state), y
+            return ChainState(conv_state, eq_state), y
+        conv_state, y = upols.conv_step_paged(
+            conv_params, conv_state, x, bank,
+            operands.synth if operands else None)
+        if eq_enabled:
+            outs = []
+            for m in range(x.shape[2]):
+                eq_state, ym = eq_block.eq_step(
+                    eq_from, eq_to, eq_state, y[:, m], transition_length,
+                    eq_crossfading,
+                )
+                outs.append(ym)
+            y = torch.stack(outs, dim=1)
+        return ChainState(conv_state, eq_state), y
 
 
 class BinauralChain(nn.Module):

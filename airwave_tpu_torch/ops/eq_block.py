@@ -26,6 +26,7 @@ import torch
 from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from airwave_tpu_torch.ops import biquad_design as bd
 from airwave_tpu_torch.ops import precision, upols
+from airwave_tpu_torch.utils.profiling import EQ_CASCADE, EQ_RECURRENCE, span
 
 # The tier of the EQ's products (ops/precision), read at import.
 PRECISION = precision.resolve("AIRWAVE_MATMUL_PRECISION")
@@ -116,25 +117,26 @@ def eq_step(
 
     With crossfade_active=False (steady state, no stream mid-ramp) only the
     'to' cascade runs."""
-    T = x.shape[-1]
-    y_to, s_to = _cascade_block(params_to, state.s_to, x)
+    with span(EQ_CASCADE):
+        T = x.shape[-1]
+        y_to, s_to = _cascade_block(params_to, state.s_to, x)
 
-    if not crossfade_active:
-        return EqState(s_from=state.s_from, s_to=s_to,
-                       counter=_advance(state.counter, T)), y_to
+        if not crossfade_active:
+            return EqState(s_from=state.s_from, s_to=s_to,
+                           counter=_advance(state.counter, T)), y_to
 
-    y_from, s_from = _cascade_block(params_from, state.s_from, x)
-    t = torch.arange(T, dtype=torch.float32, device=x.device)
-    progress = torch.clamp(
-        (state.counter[:, None].to(torch.float32) + t + 1.0)
-        / float(transition_length),
-        0.0,
-        1.0,
-    )  # [B, T]
-    w = progress[:, None, :]
-    y = y_from * (1.0 - w) + y_to * w
-    return EqState(s_from=s_from, s_to=s_to,
-                   counter=_advance(state.counter, T)), y
+        y_from, s_from = _cascade_block(params_from, state.s_from, x)
+        t = torch.arange(T, dtype=torch.float32, device=x.device)
+        progress = torch.clamp(
+            (state.counter[:, None].to(torch.float32) + t + 1.0)
+            / float(transition_length),
+            0.0,
+            1.0,
+        )  # [B, T]
+        w = progress[:, None, :]
+        y = y_from * (1.0 - w) + y_to * w
+        return EqState(s_from=s_from, s_to=s_to,
+                       counter=_advance(state.counter, T)), y
 
 
 def eq_apply_folded(params: EqParams, state: EqState, fir: torch.Tensor,
@@ -149,13 +151,14 @@ def eq_apply_folded(params: EqParams, state: EqState, fir: torch.Tensor,
     M = fir.shape[1]
     s = state.s_to
     states = []
-    for m in range(M):
-        states.append(s)
-        s = _mm(s, params.A_T) + drive[:, m]
-    sm = torch.stack(states, dim=1)  # [B, M, C, N]
-    y = fir + _mm(sm, params.O)
-    return EqState(s_from=state.s_from, s_to=s,
-                   counter=_advance(state.counter, M * fir.shape[-1])), y
+    with span(EQ_RECURRENCE):
+        for m in range(M):
+            states.append(s)
+            s = _mm(s, params.A_T) + drive[:, m]
+        sm = torch.stack(states, dim=1)  # [B, M, C, N]
+        y = fir + _mm(sm, params.O)
+        return EqState(s_from=state.s_from, s_to=s,
+                       counter=_advance(state.counter, M * fir.shape[-1])), y
 
 
 def fold_post(eq_to: EqParams) -> torch.Tensor:

@@ -46,6 +46,8 @@ import os
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from airwave_tpu_torch.utils.profiling import BUILD_WEIGHT_OPERAND, span
+
 TIERS = ("highest", "high", "default")
 _PARTS = {"high": 3, "default": 1}
 
@@ -94,7 +96,8 @@ def operand(t: torch.Tensor, side: str, tier: str,
         views = _WEIGHT_OPERANDS.setdefault(key, {})
         tag = (side, tier, tuple(t.shape), t.stride(), t.storage_offset())
         if tag not in views:
-            views[tag] = operand(t, side, tier)
+            with span(BUILD_WEIGHT_OPERAND):
+                views[tag] = operand(t, side, tier)
         return views[tag]
     dim = t.dim() - (1 if side == "a" else 2)
     n = t.shape[dim]

@@ -50,6 +50,8 @@ from airwave_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from airwave_tpu_torch.kernels.mac_kmajor import (mac_kmajor, mac_kmajor_pages,
                                                   max_columns)
 from airwave_tpu_torch.ops import fftmm, precision
+from airwave_tpu_torch.utils.profiling import (CONV_ANALYSIS, CONV_SYNTHESIS,
+                                               span)
 
 # The JAX package's tier names (ops/precision). The DFT products read
 # fftmm.DFT_PRECISION. _MAC_PRECISION (AIRWAVE_MAC_PRECISION, following
@@ -360,8 +362,9 @@ def _mac_irfft(fdl: torch.Tensor, h: torch.Tensor,
     Kp, S, P, C, B = fdl.shape
     Y = _mac_columns(fdl.view(Kp, S * P * C, B), h)     # [E*Q, Kp, B]
     E = h.shape[1] // 2
-    y = precision.matmul(synth, Y.view(E, 2 * Kp, B), fftmm.DFT_PRECISION,
-                         a_key=synth)                     # [E, T, B]
+    with span(CONV_SYNTHESIS):
+        y = precision.matmul(synth, Y.view(E, 2 * Kp, B),
+                             fftmm.DFT_PRECISION, a_key=synth)  # [E, T, B]
     return y.permute(2, 0, 1)
 
 
@@ -391,12 +394,13 @@ def conv_step(params: ConvParams, state: ConvState, x: torch.Tensor,
     if synth is None:
         synth = project_weights(params, Kp)
 
-    u = fftmm.rfft_mm(x, params.wf)                      # [B, S, K, 2]
-    slot = state.fdl.narrow(2, w, 1)
-    new = _to_slot(u, Kp)
-    if active_mask is not None:
-        new = torch.where(active_mask.to(torch.bool), new, slot)
-    slot.copy_(new)
+    with span(CONV_ANALYSIS):
+        u = fftmm.rfft_mm(x, params.wf)                  # [B, S, K, 2]
+        slot = state.fdl.narrow(2, w, 1)
+        new = _to_slot(u, Kp)
+        if active_mask is not None:
+            new = torch.where(active_mask.to(torch.bool), new, slot)
+        slot.copy_(new)
     y = _mac_irfft(state.fdl, _rotated_window(bank, w), synth)
     return ConvState(fdl=state.fdl, write_pos=(w + 1) % P2), y
 
@@ -512,14 +516,16 @@ def conv_step_paged_raw(params: ConvParams, state: PagedConvState,
         bank = paged_bank(params, M, Kp)
 
     # Half-window analysis, newest block first: slot j holds block M-1-j.
-    xt = x.flip(2).permute(3, 1, 2, 0).reshape(T, S * M * B)    # [t, (s,j,b)]
-    u = precision.matmul(params.wf.reshape(T, K * 2).t(), xt,
-                         fftmm.DFT_PRECISION, a_key=params.wf)  # [(k,c), (s,j,b)]
-    new_page = F.pad(u.view(K, 2, S, M, B).transpose(1, 2),
-                     (0, 0, 0, 0, 0, 0, 0, 0, 0, Kp - K))        # [Kp, S, C, M, B]
-    if active_mask is not None:
-        new_page = torch.where(active_mask.to(torch.bool), new_page,
-                               state.pages[-1])
+    with span(CONV_ANALYSIS):
+        xt = x.flip(2).permute(3, 1, 2, 0).reshape(T, S * M * B)  # [t, (s,j,b)]
+        u = precision.matmul(params.wf.reshape(T, K * 2).t(), xt,
+                             fftmm.DFT_PRECISION,
+                             a_key=params.wf)             # [(k,c), (s,j,b)]
+        new_page = F.pad(u.view(K, 2, S, M, B).transpose(1, 2),
+                         (0, 0, 0, 0, 0, 0, 0, 0, 0, Kp - K))  # [Kp, S, C, M, B]
+        if active_mask is not None:
+            new_page = torch.where(active_mask.to(torch.bool), new_page,
+                                   state.pages[-1])
     pages = (new_page,) + tuple(state.pages[:-1])
     return PagedConvState(pages=pages), _paged_mac(pages, bank, M)
 
@@ -543,8 +549,9 @@ def paged_project(params: ConvParams, Ykm: torch.Tensor,
     M, E, Q, Kp, B = Ykm.shape
     if synth is None:
         synth = project_weights(params, Kp, post)
-    y = precision.matmul(synth, Ykm.reshape(M * E, Q * Kp, B),
-                         fftmm.DFT_PRECISION, a_key=synth)      # [M*E, X, B]
+    with span(CONV_SYNTHESIS):
+        y = precision.matmul(synth, Ykm.reshape(M * E, Q * Kp, B),
+                             fftmm.DFT_PRECISION, a_key=synth)  # [M*E, X, B]
     return y.view(M, E, -1, B).permute(3, 0, 1, 2)
 
 

@@ -49,6 +49,7 @@ import tempfile
 import numpy as np
 
 from airwave_tpu_torch.device import DEFAULT_DEVICE
+from airwave_tpu_torch.utils.profiling import SPAN_PREFIX
 
 BLOCK = 512
 SAMPLE_RATE = 48_000.0
@@ -227,6 +228,7 @@ def profile(call, device, calls: int, blocks: int, top: int = 40,
                        else e.self_cpu_time_total), e.count)
               for e in prof.key_averages() if e.device_type == kind
               and not e.key.startswith("ProfilerStep")  # the schedule's
+              and not e.key.startswith(SPAN_PREFIX)     # the program's spans
               and LEAD_KERNEL_NAME not in e.key]
     rows = sorted((r for r in totals if r[1] > 0), key=lambda r: -r[1])[:top]
     blocks_total = blocks * calls

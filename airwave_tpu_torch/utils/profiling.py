@@ -1,8 +1,31 @@
 """Tracing / profiling utilities.
 
-Port of airwave_tpu/utils/profiling.py: per-step wall timing on the host,
-realtime-multiple accounting, and an optional torch.profiler trace context
-(device_trace). The kernels stay instrumentation-free.
+Port of airwave_tpu/utils/profiling.py: per-step wall timing on the host
+and realtime-multiple accounting (RenderProfiler), and the program's spans.
+
+`span(name)` marks a layer of the chain step for torch.profiler: while a
+profiler records, it is a `record_function` range, a `user_annotation`
+event of the trace on the same clock as the device's records, nested on the
+launching thread; otherwise it is one shared null context and costs only
+the profiler's enabled check. Nothing turns spans on but a profiler that
+records. Every name is a module-level constant beginning with SPAN_PREFIX:
+
+  airwave.chain.step            models/binaural's chain steps
+  airwave.conv.analysis         ops/upols: the analysis product and the
+                                delay-line write
+  airwave.conv.synthesis        ops/upols: the synthesis product
+  airwave.mac.single.<route>    kernels/mac_kmajor: a mac_kmajor launch
+  airwave.mac.pages.columns<c>  ... a mac_kmajor_pages launch
+  airwave.mac.{single,pages}.ref  ... their plain versions (CPU tensors)
+  airwave.eq.cascade            ops/eq_block.eq_step
+  airwave.eq.recurrence         ops/eq_block.eq_apply_folded
+  airwave.build.*               work done once and cached: a MAC launch
+                                plan, a weight's split, the kernel library
+
+On a card the profiler also gives each span a device-side range over the
+kernels launched inside it (`gpu_user_annotation`): `key_averages()` lists
+it as a CUDA row of the span's name, whose time is already its kernels'.
+A sum of CUDA rows leaves out the rows whose names begin with SPAN_PREFIX.
 """
 
 from __future__ import annotations
@@ -10,7 +33,29 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict
+
+import torch
+
+SPAN_PREFIX = "airwave."
+CHAIN_STEP = "airwave.chain.step"
+CONV_ANALYSIS = "airwave.conv.analysis"
+CONV_SYNTHESIS = "airwave.conv.synthesis"
+EQ_CASCADE = "airwave.eq.cascade"
+EQ_RECURRENCE = "airwave.eq.recurrence"
+BUILD_MAC_PLAN = "airwave.build.mac_plan"
+BUILD_WEIGHT_OPERAND = "airwave.build.weight_operand"
+BUILD_KERNEL_LIBRARY = "airwave.build.kernel_library"
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A torch.profiler range named `name` while a profiler records, else
+    a shared null context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @dataclasses.dataclass
@@ -71,23 +116,3 @@ class RenderProfiler:
             }
             for label, s in self.stats.items()
         }
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: Optional[str]):
-    """A torch.profiler trace of the CPU and (when a card is present) CUDA
-    activity inside the context, written to `log_dir` as a Chrome trace
-    for TensorBoard; a no-op when log_dir is None."""
-    if log_dir is None:
-        yield
-        return
-    import torch
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield

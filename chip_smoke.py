@@ -374,6 +374,7 @@ from airwave_tpu_torch.utils import checkpoint, memory_planner
 from airwave_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                 load_pool_snapshot)
 from airwave_tpu_torch.utils.memory_planner import device_hbm_bytes
+from airwave_tpu_torch.utils.profiling import SPAN_PREFIX
 
 SAMPLE_RATE = 48_000.0
 BATCH, SPEAKERS, EARS, BLOCK, HRIR_TAPS = 16384, 2, 2, 512, 4320
@@ -2835,6 +2836,7 @@ class PumpClock:
         prof, wall, rounds, pump_s, stop_s, macs = self._stopped
         events = [e for e in prof.key_averages()
                   if not e.key.startswith("ProfilerStep")  # the schedule's
+                  and not e.key.startswith(SPAN_PREFIX)    # the program's
                   and profile_chain.LEAD_KERNEL_NAME not in e.key]
         device_ms = sum(e.self_device_time_total for e in events
                         if e.device_type == DeviceType.CUDA) / 1e3

@@ -35,7 +35,7 @@ from airwave_tpu_torch.io.apo import (EqualizerDefinition, EqualizerFilter,
 from airwave_tpu_torch.io.wav import WAVData as TWAVData
 from airwave_tpu_torch.ops import biquad_design as tbd
 from airwave_tpu_torch.oracle.eq_oracle import EqCascadeOracle
-from airwave_tpu_torch.utils.profiling import RenderProfiler, device_trace
+from airwave_tpu_torch.utils.profiling import RenderProfiler
 
 SR = 48_000.0
 TOL = 1e-5
@@ -337,17 +337,10 @@ def test_host_eq_oracle_matches_jax_copy():
                 np.testing.assert_array_equal(u, v)
 
 
-def test_render_profiler_and_device_trace(tmp_path):
+def test_render_profiler():
     prof = RenderProfiler(SR, 512, batch=2)
     for _ in range(3):
         with prof.step():
             pass
     report = prof.report()["render"]
     assert report["steps"] == 3 and report["min_ms"] <= report["max_ms"]
-    with device_trace(None):
-        pass
-    import torch
-
-    with device_trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert any((tmp_path / "trace").iterdir())
