@@ -12,6 +12,14 @@ in fp32 matmuls. Crossfade: the carry holds two cascade states
 cascades and blends with the exact per-sample ramp
 (counter + t + 1) / L clipped to [0, 1].
 
+The products run in the layout x arrives in, chosen from its strides and
+counted by `route_counts`: "lanes_last" for the [B, C, T] view of a
+contiguous [C, T, B] tensor, as upols.conv_step returns its y, where
+y = Hm @ x + O @ s0 and s_T = A_T @ s0 + G @ x are each one GEMM over the
+C channels with the lanes as the long dimension, and y is returned as the
+same kind of view; "rows" for any other x (a contiguous block folds to
+one [B*C, T] operand).
+
 The products run at PRECISION (AIRWAVE_MATMUL_PRECISION, ops/precision):
 IEEE fp32 by default, bf16x3 or one bf16 pass when asked.
 """
@@ -34,6 +42,9 @@ PRECISION = precision.resolve("AIRWAVE_MATMUL_PRECISION")
 # Counter value meaning "no transition in progress" (golden-tested: any
 # value >= the longest supported transition length works).
 COUNTER_IDLE = int(np.int32(1 << 24))
+
+# eq_step calls by route since reset_route_counts (host-side integers).
+_routes = {"lanes_last": 0, "rows": 0}
 
 
 class EqParams(NamedTuple):
@@ -93,15 +104,62 @@ def _advance(counter: torch.Tensor, samples: int) -> torch.Tensor:
     return torch.clamp_max(counter + samples, COUNTER_IDLE)
 
 
+def route_counts() -> dict:
+    """{"lanes_last": n, "rows": n}: eq_step calls by route since the last
+    reset_route_counts()."""
+    return dict(_routes)
+
+
+def reset_route_counts() -> None:
+    for route in _routes:
+        _routes[route] = 0
+
+
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a @ w.T at PRECISION; w is a weight, split once at a relaxed tier."""
     return precision.matmul(a, w.T, PRECISION, b_key=w)
 
 
-def _cascade_block(params: EqParams, s: torch.Tensor, x: torch.Tensor):
-    """Run one cascade over a block. x [B, C, T], s [B, C, N]."""
-    y = _mm(x, params.Hm) + _mm(s, params.O)
-    s_next = _mm(s, params.A_T) + _mm(x, params.G)
+def _mm_left(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """w @ v at PRECISION for v [C, K, B]; w is a weight, split once at a
+    relaxed tier."""
+    return precision.matmul(w, v, PRECISION, a_key=w)
+
+
+def _lanes_last(x: torch.Tensor) -> bool:
+    """Whether x [B, C, T] is the view of a contiguous [C, T, B] tensor and
+    not contiguous itself (at B = 1 it is both, and takes the rows)."""
+    return not x.is_contiguous() and x.permute(1, 2, 0).is_contiguous()
+
+
+def _cascade_block(params: EqParams, s: torch.Tensor, x: torch.Tensor,
+                   lanes_last: bool):
+    """Run one cascade over a block: s [B, C, N] -> s_next [B, C, N].
+
+    Rows: x [B, C, T] -> y [B, C, T], each product one [B*C, K] GEMM.
+    Lanes last: x [C, T, B] (contiguous) -> y [C, T, B], each product one
+    GEMM batched over the C channels with the lanes as its long dimension.
+    s is read, and s_next written, through their [C, N, B] views (a
+    column-major matrix a channel, ld C*N), so s_next stays a contiguous
+    [B, C, N]; at "highest" the state terms accumulate in place into the
+    FIR and drive products."""
+    if not lanes_last:
+        y = _mm(x, params.Hm) + _mm(s, params.O)
+        s_next = _mm(s, params.A_T) + _mm(x, params.G)
+        return y, s_next
+    C = x.shape[0]
+    s_lanes = s.permute(1, 2, 0)
+    s_next = torch.empty(s.shape, dtype=s.dtype, device=s.device)
+    next_lanes = s_next.permute(1, 2, 0)
+    if PRECISION == "highest":
+        y = torch.bmm(params.Hm.expand(C, -1, -1), x)
+        y.baddbmm_(params.O.expand(C, -1, -1), s_lanes)
+        torch.bmm(params.G.expand(C, -1, -1), x, out=next_lanes)
+        next_lanes.baddbmm_(params.A_T.expand(C, -1, -1), s_lanes)
+    else:
+        y = _mm_left(params.Hm, x).add_(_mm_left(params.O, s_lanes))
+        torch.add(_mm_left(params.A_T, s_lanes), _mm_left(params.G, x),
+                  out=next_lanes)
     return y, s_next
 
 
@@ -116,27 +174,32 @@ def eq_step(
     """One EQ block: x [B, C, T] -> (state', y [B, C, T]).
 
     With crossfade_active=False (steady state, no stream mid-ramp) only the
-    'to' cascade runs."""
+    'to' cascade runs. The route follows x's strides (module docstring); on
+    the lanes-last route y is the [B, C, T] view of a [C, T, B] tensor."""
     with span(EQ_CASCADE):
         T = x.shape[-1]
-        y_to, s_to = _cascade_block(params_to, state.s_to, x)
+        lanes_last = _lanes_last(x)
+        _routes["lanes_last" if lanes_last else "rows"] += 1
+        if lanes_last:
+            x = x.permute(1, 2, 0)                       # [C, T, B]
+        y, s_to = _cascade_block(params_to, state.s_to, x, lanes_last)
+        s_from = state.s_from
 
-        if not crossfade_active:
-            return EqState(s_from=state.s_from, s_to=s_to,
-                           counter=_advance(state.counter, T)), y_to
+        if crossfade_active:
+            y_from, s_from = _cascade_block(params_from, state.s_from, x,
+                                            lanes_last)
+            t = torch.arange(T, dtype=torch.float32, device=x.device)
+            counter = state.counter.to(torch.float32)
+            # The ramp over [T, B] or [B, 1, T], as y lies; the blend in
+            # place, in the reference's arithmetic.
+            w = (counter + t[:, None] if lanes_last
+                 else counter[:, None, None] + t)
+            w = w.add_(1.0).div_(float(transition_length)).clamp_(0.0, 1.0)
+            y = y.mul_(w).add_(y_from.mul_(1.0 - w))
 
-        y_from, s_from = _cascade_block(params_from, state.s_from, x)
-        t = torch.arange(T, dtype=torch.float32, device=x.device)
-        progress = torch.clamp(
-            (state.counter[:, None].to(torch.float32) + t + 1.0)
-            / float(transition_length),
-            0.0,
-            1.0,
-        )  # [B, T]
-        w = progress[:, None, :]
-        y = y_from * (1.0 - w) + y_to * w
-        return EqState(s_from=s_from, s_to=s_to,
-                       counter=_advance(state.counter, T)), y
+        return (EqState(s_from=s_from, s_to=s_to,
+                        counter=_advance(state.counter, T)),
+                y.permute(2, 0, 1) if lanes_last else y)
 
 
 def eq_apply_folded(params: EqParams, state: EqState, fir: torch.Tensor,

@@ -27,7 +27,8 @@ HOT_MODULES = {
                                        "_paged_mac", "paged_project",
                                        "_mac_irfft"},
     "airwave_tpu_torch/ops/eq_block.py": {"eq_step", "_cascade_block",
-                                          "eq_apply_folded", "_mm"},
+                                          "eq_apply_folded", "_mm",
+                                          "_mm_left", "_lanes_last"},
     "airwave_tpu_torch/ops/fftmm.py": {"rfft_mm", "irfft_mm"},
     "airwave_tpu_torch/ops/precision.py": {"operand", "product", "matmul"},
     "airwave_tpu_torch/models/binaural.py": {"chain_step_fn",

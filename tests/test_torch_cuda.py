@@ -1093,6 +1093,68 @@ def test_paged_chain_tiers_against_oracle(cuda_device, monkeypatch):
     assert precision_is_strict()
 
 
+@pytest.mark.parametrize("crossfade", [False, True])
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+def test_eq_step_lanes_last_on_card(cuda_device, monkeypatch, tier,
+                                    crossfade):
+    """eq_step at 8,192 lanes on the card, handed the [B, C, T] view of a
+    contiguous [C, T, B] block as conv_step returns it, at each tier (set
+    on the module constant the products read): the lanes-last route ran,
+    with relaxed products at the relaxed tiers alone; y and both states
+    within 1e-6 rel-RMS of the float64 step at highest (and of the rows
+    route on the same card), 1e-5 at high, 1e-2 for one bf16 pass; the
+    state came back a contiguous [B, C, N]."""
+    from airwave_tpu_torch.ops import eq_block, precision
+
+    B, T, N = 8192, 512, 128
+    rng = np.random.default_rng(18)
+
+    def eq_params(gain):
+        preamp, coeffs = bd.design_cascade(_preset(gain), 48_000.0)
+        return eq_block.make_eq_params(coeffs, preamp, T, N,
+                                       device=cuda_device)
+
+    params = [eq_params(4.0), eq_params(-6.0)]
+    lanes = [torch.tensor(rng.standard_normal(shape) * scale,
+                          dtype=torch.float32, device=cuda_device)
+             for shape, scale in (((2, T, B), 0.5), ((B, 2, N), 0.1),
+                                  ((B, 2, N), 0.1))]
+    counter = torch.tensor(rng.integers(0, 1200, B), dtype=torch.int32,
+                           device=cuda_device)
+    x = lanes[0].permute(2, 0, 1)
+    state = eq_block.EqState(lanes[1], lanes[2], counter)
+
+    def step(p, s, xb):
+        return eq_block.eq_step(p[0], p[1], s, xb, 960, crossfade)
+
+    wide = [eq_block.EqParams(*(a.double().cpu() for a in p)) for p in params]
+    ref_state, ref_y = step(wide, eq_block.EqState(
+        *(a.double().cpu() for a in state[:2]), counter.cpu()),
+        x.double().cpu().contiguous())
+    with monkeypatch.context() as m:
+        m.setattr(eq_block, "PRECISION", tier)
+        precision.reset_launch_count()
+        eq_block.reset_route_counts()
+        got_state, y = step(params, state, x)
+        torch.cuda.synchronize()
+        assert eq_block.route_counts() == {"lanes_last": 1, "rows": 0}
+        assert precision.launch_count() == (
+            0 if tier == "highest" else 8 if crossfade else 4)
+        rows_state, rows_y = step(params, state, x.contiguous())
+    bound = {"highest": 1e-6, "high": 1e-5, "default": 1e-2}[tier]
+    for got, want in ((y, ref_y), (got_state.s_to, ref_state.s_to),
+                      (got_state.s_from, ref_state.s_from)):
+        if want.abs().max() > 0:
+            assert rel_rms(got.cpu().numpy(), want.numpy()) <= bound
+    for s in got_state[:2]:
+        assert s.shape == (B, 2, N) and s.is_contiguous()
+    assert y.permute(1, 2, 0).is_contiguous()
+    if tier == "highest":
+        assert rel_rms(y.cpu().numpy(), rows_y.cpu().numpy()) <= 1e-6
+        assert rel_rms(got_state.s_to.cpu().numpy(),
+                       rows_state.s_to.cpu().numpy()) <= 1e-6
+
+
 @pytest.mark.parametrize("blocks_per_step", [1, 8])
 def test_soak_on_card_passes(cuda_device, blocks_per_step):
     """tools/soak on each tier at B=1024 for 5 s: every checksum finite, no

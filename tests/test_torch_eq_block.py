@@ -1,6 +1,8 @@
 """ops/eq_block of the PyTorch port against the JAX package: the steady and
-the crossfading eq_step, eq_apply_folded and eq_folded_paged_round, the
-serving pool's lane ops, and the float64 cascade oracle."""
+the crossfading eq_step on both routes (a contiguous block, and the
+lanes-last view that upols.conv_step returns), eq_apply_folded and
+eq_folded_paged_round, the serving pool's lane ops, and the float64 cascade
+oracle."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,8 +12,10 @@ import torch
 from airwave_tpu.oracle.eq_oracle import EqCascadeOracle
 from airwave_tpu.ops import eq_block as jeq
 from airwave_tpu.ops import upols as jupols
+from airwave_tpu_torch.graph.effect_graph import DeviceEqualizerEffect
 from airwave_tpu_torch.io.apo import (EqualizerDefinition, EqualizerFilter,
                                       FilterType)
+from airwave_tpu_torch.models import binaural as tbin
 from airwave_tpu_torch.ops import biquad_design as tbd
 from airwave_tpu_torch.ops import eq_block as teq
 from airwave_tpu_torch.ops import upols as tupols
@@ -49,19 +53,38 @@ def _to_torch_state(sj):
     return teq.EqState(*(torch.tensor(np.asarray(a)) for a in sj))
 
 
-def test_eq_step_steady_matches_jax_and_oracle():
+# The two layouts eq_step takes, with the lanes of each case: a contiguous
+# [B, 2, T] block (the rows route), and the [B, 2, T] view of a contiguous
+# [2, T, B] tensor, as upols.conv_step returns it (the lanes-last route;
+# B >= 8, so the lane stride is real).
+LAYOUTS = [pytest.param("rows", 2, id="rows"),
+           pytest.param("lanes_last", 8, id="lanes_last")]
+
+
+def _block(a: np.ndarray, layout: str) -> torch.Tensor:
+    """a [B, 2, T] as the torch input of `layout`."""
+    if layout == "rows":
+        return torch.from_numpy(np.ascontiguousarray(a))
+    return torch.from_numpy(np.ascontiguousarray(a.transpose(1, 2, 0))
+                            ).permute(2, 0, 1)
+
+
+@pytest.mark.parametrize("layout,B", LAYOUTS)
+def test_eq_step_steady_matches_jax_and_oracle(layout, B):
     rng = np.random.default_rng(3)
-    B, n = 2, 12
+    n = 12
     pt, pj, (pre, co) = _params(T)
     x = (rng.standard_normal((B, 2, n * T)) * 0.5).astype(np.float32)
     st, sj = teq.make_eq_state(B, device="cpu"), jeq.make_eq_state(B)
     outs_t, outs_j = [], []
+    teq.reset_route_counts()
     for i in range(n):
         blk = x[:, :, i * T:(i + 1) * T]
-        st, yt = teq.eq_step(pt, pt, st, torch.from_numpy(blk), 960, False)
+        st, yt = teq.eq_step(pt, pt, st, _block(blk, layout), 960, False)
         sj, yj = jeq.eq_step(pj, pj, sj, jnp.asarray(blk), 960, False)
         outs_t.append(yt.numpy())
         outs_j.append(np.asarray(yj))
+    assert teq.route_counts() == {"lanes_last": 0, "rows": 0, layout: n}
     got, ref = np.concatenate(outs_t, -1), np.concatenate(outs_j, -1)
     assert rel_rms(got, ref) <= PORT_TOL
     assert rel_rms(st.s_to.numpy(), np.asarray(sj.s_to)) <= PORT_TOL
@@ -71,27 +94,111 @@ def test_eq_step_steady_matches_jax_and_oracle():
         assert rel_rms(got[b], np.stack([rl, rr])) <= ORACLE_TOL
 
 
-def test_eq_step_crossfade_matches_jax():
-    """unity -> target over a 960-sample ramp, one lane mid-transition and
-    one idle; the counters saturate at COUNTER_IDLE."""
+@pytest.mark.parametrize("layout,B", LAYOUTS)
+def test_eq_step_crossfade_matches_jax(layout, B):
+    """unity -> target over a 960-sample ramp, the even lanes
+    mid-transition and the odd ones idle; the counters saturate at
+    COUNTER_IDLE."""
     rng = np.random.default_rng(4)
-    B = 2
     pt, pj, _ = _params(T)
     ut, uj = teq.unity_eq_params(T, device="cpu"), jeq.unity_eq_params(T)
     sj = jeq.eq_begin_transition(jeq.make_eq_state(B),
-                                 jnp.asarray([True, False]))
+                                 jnp.asarray(np.arange(B) % 2 == 0))
     st = _to_torch_state(sj)
+    teq.reset_route_counts()
     for i in range(3):  # 1536 samples: past the 960-sample ramp
         blk = (rng.standard_normal((B, 2, T)) * 0.5).astype(np.float32)
-        st, yt = teq.eq_step(ut, pt, st, torch.from_numpy(blk), 960)
+        st, yt = teq.eq_step(ut, pt, st, _block(blk, layout), 960)
         sj, yj = jeq.eq_step(uj, pj, sj, jnp.asarray(blk), 960)
         assert rel_rms(yt.numpy(), np.asarray(yj)) <= PORT_TOL, i
         np.testing.assert_array_equal(st.counter.numpy(), np.asarray(sj.counter))
+    assert teq.route_counts() == {"lanes_last": 0, "rows": 0, layout: 3}
     # The unity cascade has no state: s_from stays zero on both sides.
     np.testing.assert_array_equal(st.s_from.numpy(), np.asarray(sj.s_from))
     assert rel_rms(st.s_to.numpy(), np.asarray(sj.s_to)) <= PORT_TOL
     assert st.counter.dtype == torch.int32
     assert int(st.counter[1]) == teq.COUNTER_IDLE
+
+
+def _lane_state(rng, B, N=128):
+    """Live histories on both cascades and counters spread over the ramp."""
+    return teq.EqState(
+        torch.from_numpy((rng.standard_normal((B, 2, N)) * 0.1).astype(np.float32)),
+        torch.from_numpy((rng.standard_normal((B, 2, N)) * 0.1).astype(np.float32)),
+        torch.from_numpy(np.linspace(0, 1200, B).astype(np.int32)))
+
+
+@pytest.mark.parametrize("crossfade", [False, True])
+def test_eq_step_routes_agree(crossfade):
+    """The same block and state on both routes: y, s_to and s_from within
+    1e-6 rel-RMS of each other, the counters equal."""
+    rng = np.random.default_rng(6)
+    B = 16
+    pt, _, _ = _params(T)
+    pf, _, _ = _params(T, EqualizerDefinition(preamp_db=1.5, filters=(
+        EqualizerFilter(1, None, True, FilterType.PEAKING, 2500.0, -4.0, 2.0),)))
+    state = _lane_state(rng, B)
+    blk = (rng.standard_normal((B, 2, T)) * 0.5).astype(np.float32)
+    teq.reset_route_counts()
+    sr, yr = teq.eq_step(pf, pt, state, _block(blk, "rows"), 960, crossfade)
+    sl, yl = teq.eq_step(pf, pt, state, _block(blk, "lanes_last"), 960,
+                         crossfade)
+    assert teq.route_counts() == {"lanes_last": 1, "rows": 1}
+    assert rel_rms(yl.numpy(), yr.numpy()) <= 1e-6
+    assert rel_rms(sl.s_to.numpy(), sr.s_to.numpy()) <= 1e-6
+    assert rel_rms(sl.s_from.numpy(), sr.s_from.numpy()) <= 1e-6
+    torch.testing.assert_close(sl.counter, sr.counter, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("crossfade", [False, True])
+def test_eq_step_lanes_last_layouts(crossfade):
+    """The lanes-last route returns the state as every reader of it takes
+    it (contiguous [B, C, N] float32, the counter int32; s_from the very
+    tensor passed in, unread and unwritten, in steady state) and y as the
+    [B, C, T] view of a contiguous [C, T, B] tensor."""
+    rng = np.random.default_rng(7)
+    B, N = 8, 128
+    pt, _, _ = _params(T)
+    state = _lane_state(rng, B, N)
+    s_from = state.s_from.clone()
+    blk = (rng.standard_normal((B, 2, T)) * 0.5).astype(np.float32)
+    st, y = teq.eq_step(pt, pt, state, _block(blk, "lanes_last"), 960,
+                        crossfade)
+    for s in (st.s_from, st.s_to):
+        assert s.shape == (B, 2, N) and s.dtype == torch.float32
+        assert s.is_contiguous()
+    assert st.counter.dtype == torch.int32 and st.counter.shape == (B,)
+    if not crossfade:
+        assert st.s_from is state.s_from
+    torch.testing.assert_close(state.s_from, s_from, rtol=0, atol=0)
+    assert y.shape == (B, 2, T) and y.permute(1, 2, 0).is_contiguous()
+
+
+def test_route_counts_follow_the_callers():
+    """A zero-latency BinauralChain step (M = 1, the EQ on) hands eq_step
+    conv_step's lanes-last y; DeviceEqualizerEffect copies a contiguous
+    block in: one call on each route."""
+    rng = np.random.default_rng(8)
+    B, S = 4, 2
+    pt, _, _ = _params(T)
+    hrir = (rng.standard_normal((S, 2, 1200)) * 0.3).astype(np.float32)
+    ct = tupols.make_conv_params(hrir, T, pad_to_pow2=False, device="cpu")
+    chain = tbin.BinauralChain(ct, pt, pt, 960, T)
+    state = tbin.ChainState(
+        tupols.make_conv_state(B, S, ct.partition_count, T, device="cpu"),
+        teq.make_eq_state(B, device="cpu"))
+    x = (rng.standard_normal((B, S, T)) * 0.4).astype(np.float32)
+    teq.reset_route_counts()
+    _, y = chain(state, torch.from_numpy(x))
+    assert teq.route_counts() == {"lanes_last": 1, "rows": 0}
+    assert y.shape == (B, 2, T) and torch.isfinite(y).all()
+
+    effect = DeviceEqualizerEffect(batch=B, device="cpu")
+    effect.prepare(DEFINITION, 48_000.0)
+    teq.reset_route_counts()
+    out = effect.process_batch(x[:, :2])
+    assert teq.route_counts() == {"lanes_last": 0, "rows": 1}
+    assert out.shape == (B, 2, T)
 
 
 def test_eq_apply_folded_matches_jax():
