@@ -21,6 +21,8 @@ import sys
 import time
 
 from perfbench.core.imports import forbidden_modules
+from perfbench.core.roofline import (BF16_FLOPS_PER_S, FP32_FLOPS_PER_S,
+                                     HBM_BYTES_PER_S)
 
 TIER_VARS = ("AIRWAVE_MATMUL_PRECISION", "AIRWAVE_DFT_PRECISION",
              "AIRWAVE_MAC_PRECISION")
@@ -95,7 +97,9 @@ def main(argv=None, started: "float | None" = None) -> int:
     from perfbench.core.cell import run_cell
 
     if args.trace:
-        err(f"card: {power_limit()}; peaks: 3.35 TB/s HBM, 67 TFLOP/s fp32 "
+        err(f"card: {power_limit()}; peaks: {HBM_BYTES_PER_S / 1e12:g} TB/s "
+            f"HBM, {FP32_FLOPS_PER_S / 1e12:g} TFLOP/s fp32, "
+            f"{BF16_FLOPS_PER_S / 1e12:g} TFLOP/s bf16 dense "
             f"(H100 SXM at 700 W)")
     result, checks = run_cell(spec, args.workload, args.seed, args.seconds,
                               bool(args.trace), "cuda:0", started, log=err)

@@ -1,5 +1,6 @@
 """The yardstick of a kernel's roofline share: published peaks and the least
-work of the chain's multiply-accumulate, counted from the configuration.
+work of the chain's multiply-accumulate and of its relaxed DFT products,
+counted from the configuration.
 
 The delay-line MAC contracts, per frequency bin k,
 
@@ -20,7 +21,12 @@ from typing import NamedTuple
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12      # dense, on the tensor cores
 FLOAT_BYTES = 4
+BF16_BYTES = 2
+# bf16 passes of one product at a relaxed tier (airwave_tpu_torch's
+# ops/precision): bf16x3 at "high", one pass at "default".
+RELAXED_PASSES = {"high": 3, "default": 1}
 
 
 class Contraction(NamedTuple):
@@ -59,6 +65,51 @@ def chain_contraction(config: dict, lanes: int) -> Contraction:
     slots = coefficients + M - 1
     slots += (-slots) % M
     return Contraction(K, S * 2 * M, M * E * 2, lanes, slots // M)
+
+
+class RelaxedProduct(NamedTuple):
+    """weight [rows, inner] @ activation [inner, columns] at a relaxed tier:
+    `passes` bf16 products on the tensor cores, fp32 in and out."""
+    rows: int
+    inner: int
+    columns: int
+    passes: int
+
+    def bytes(self) -> int:
+        M, K, N, P = self
+        return (FLOAT_BYTES * (K * N + M * N)   # the activation, the output
+                + BF16_BYTES * M * P * K)       # the K-stacked weight operand
+
+    def flops(self) -> int:
+        M, K, N, P = self
+        return P * 2 * M * K * N
+
+    def least_seconds(self) -> float:
+        return max(self.bytes() / HBM_BYTES_PER_S,
+                   self.flops() / BF16_FLOPS_PER_S)
+
+
+def relaxed_dft_products(config: dict, lanes: int) -> list:
+    """The analysis and synthesis DFT products of one chain step of `config`
+    at `lanes` lanes, at the configuration's tier; [] at "highest", which
+    runs no relaxed product.
+
+    Analysis: the half-window DFT, (re, im) of block + 1 bins from the
+    block's samples, for every speaker, block of the step and lane.
+    Synthesis: the block's samples from the MAC output's (re, im) bins,
+    padded as chain_contraction pads them, for every ear, block and lane.
+    Only the DFTs count: the EQ columns that the paged tier folds into the
+    synthesis are the EQ's work."""
+    passes = RELAXED_PASSES.get(config["tier"])
+    if passes is None:
+        return []
+    T = config["block_size"]
+    K = T + 1 + (-(T + 1)) % 8
+    M = config["blocks_per_step"]
+    return [
+        RelaxedProduct(2 * (T + 1), T, config["speakers"] * M * lanes, passes),
+        RelaxedProduct(T, 2 * K, config["ears"] * M * lanes, passes),
+    ]
 
 
 def share_pct(ops, least_seconds_per_step: float):

@@ -9,15 +9,12 @@ import sys
 
 import pytest
 
-from conftest import ROOT
-from perfbench.core.cell import run_cell
-
-CELLS = ["bake.eq.b16384", "ring.eq.b8192", "ring.flat.b32768"]
+from conftest import CELLS, ROOT, run_tiny
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_result_line_keys(tiny_spec, cell):
-    result, checks = run_cell(tiny_spec, cell, 2**31 + 11, 0.2, False, "cpu")
+    result, checks = run_tiny(tiny_spec, cell, 2**31 + 11, 0.2, False)
     assert list(result) == ["correct", "attempted", "failed", "metrics",
                             "device"]
     assert result["correct"] is True and result["failed"] == 0
@@ -32,17 +29,17 @@ def test_result_line_keys(tiny_spec, cell):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_traced_run_keys(tiny_spec, cell):
-    result, _ = run_cell(tiny_spec, cell, 5, 0.1, True, "cpu")
+    result, _ = run_tiny(tiny_spec, cell, 5, 0.1, True)
     assert result["correct"] is True
     assert {"busy_s", "window_s"} <= set(result["device"])
     assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
     # The CPU has no device records: no device metric is read from it.
     names = set(result["metrics"])
-    assert not names & {"device.idle_pct", "dft.device_ms_per_block",
-                        "eq.device_ms_per_block", "mac_pages.roofline_pct",
-                        "mac_single.roofline_pct"}
-    if cell.startswith("ring"):
-        assert "chain.dispatch_us_per_block" in names
+    per_layer = tiny_spec.cell_metrics(cell, "per_layer")
+    assert not names & {m["name"] for m in per_layer
+                        if m["source"] == "device_trace"}
+    assert names == {m["name"] for m in per_layer
+                     if m["source"] != "device_trace"}
 
 
 def _run(cwd, *args):

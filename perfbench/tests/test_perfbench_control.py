@@ -1,8 +1,9 @@
 """The control of the comparison, on the card at each cell's own size: the
-program at its own lower precision tier (AIRWAVE_MATMUL_PRECISION=high,
-bf16x3 on the tensor cores) in the program's place, on three seeds, must
-come out not correct; the configuration's own tier on the same seeds must
-come out correct. Each run is a whole run of the command, at the
+program at the precision tier one step below its configuration's
+(AIRWAVE_MATMUL_PRECISION: bf16x3 on the tensor cores, "high", below strict
+fp32, "highest"; one bf16 pass, "default", below bf16x3) in the program's
+place, on three seeds, must come out not correct; the configuration's own
+tier must come out correct. Each run is a whole run of the command, at the
 benchmark's run_seconds.
 
     python -m pytest perfbench/tests -m cuda -q
@@ -14,10 +15,17 @@ import sys
 
 import pytest
 
-from conftest import ROOT
+from conftest import CELLS, ROOT
+from perfbench.core.spec import Spec
 
 SEEDS = [2147483659, 2400000017, 3000000019]
-CELLS = ["bake.eq.b16384", "ring.eq.b8192", "ring.flat.b32768"]
+LOWER = {"highest": "high", "high": "default"}
+
+
+def lower_tier(cell: str) -> str:
+    """The tier one step below that of the cell's configuration."""
+    spec = Spec()
+    return LOWER[spec.config(spec.cell(cell)["config"])["tier"]]
 
 
 def run(cell, seed, *extra):
@@ -34,7 +42,7 @@ def run(cell, seed, *extra):
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("seed", SEEDS)
 def test_control_is_not_correct(cuda_card, cell, seed):
-    result = run(cell, seed, "--tier", "high")
+    result = run(cell, seed, "--tier", lower_tier(cell))
     assert result["correct"] is False
     check = result["checks"]["worst_rel_rms"]
     assert check["value"] > check["limit"]

@@ -6,9 +6,7 @@ chip has no exchange between chips to leave out."""
 
 import pytest
 
-from perfbench.core.cell import run_cell
-
-CELLS = ["bake.eq.b16384", "ring.eq.b8192", "ring.flat.b32768"]
+from conftest import CELLS, TINY_CONFIG, run_tiny
 
 
 def stale_state(step, entry):
@@ -32,10 +30,11 @@ def half_batch(step, entry):
 
 def altered_answer(step, entry):
     """An answer altered where it is produced: one sample of every block
-    moved by 1e-3."""
+    moved by 1e-3 at the tiny copy's block, by as much more at a longer
+    block as keeps the same share of the block's energy."""
     def broken(x):
         y = step(x).clone()
-        y[..., 5] += 1e-3
+        y[..., 5] += 1e-3 * (y.shape[-1] / TINY_CONFIG["block_size"]) ** 0.5
         return y
     return broken
 
@@ -43,8 +42,8 @@ def altered_answer(step, entry):
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("fault", [stale_state, half_batch, altered_answer])
 def test_fault_is_not_correct(tiny_spec, cell, fault):
-    result, checks = run_cell(tiny_spec, cell, 2**31 + 21, 0.1, False, "cpu",
-                              fault=fault)
+    result, checks = run_tiny(tiny_spec, cell, 2**31 + 21, 0.1, False,
+                              fault=f"{__name__}:{fault.__name__}")
     assert result["correct"] is False
     assert result["failed"] > 0
     worst = checks[0]
@@ -53,5 +52,5 @@ def test_fault_is_not_correct(tiny_spec, cell, fault):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_unbroken_is_correct(tiny_spec, cell):
-    result, _ = run_cell(tiny_spec, cell, 2**31 + 21, 0.1, False, "cpu")
+    result, _ = run_tiny(tiny_spec, cell, 2**31 + 21, 0.1, False)
     assert result["correct"] is True and result["failed"] == 0

@@ -5,8 +5,11 @@ sat inside a span outside any op is labelled with the span's name, and no
 traced window of an entry on the CPU rebuilds anything (no
 `airwave.build.*` span) once warm."""
 
+from pathlib import Path
+
 import pytest
 
+from conftest import CELLS, at_tier
 from perfbench.core import trace as tracing
 from perfbench.core.cell import Run
 from perfbench.core.spec import Spec
@@ -93,6 +96,8 @@ def test_every_reader_reads_the_same_with_spans():
     assert without["mac_single.roofline_pct"] > 0
     assert without["device.idle_pct"] > 0
     assert without["mac_pages.roofline_pct"] is None
+    # At "highest" no relaxed product runs.
+    assert without["dft_relaxed.roofline_pct"] is None
 
 
 def test_idle_gap_names_the_span_the_host_sat_in():
@@ -108,17 +113,18 @@ def test_idle_gap_names_the_span_the_host_sat_in():
         sum(us for _, us in without.gaps))
 
 
-@pytest.mark.parametrize("cell", ["bake.eq.b16384", "ring.eq.b8192",
-                                  "ring.flat.b32768"])
-def test_traced_window_builds_nothing_once_warm(tiny_spec, cell):
+def traced_window_spans(root: str, bench: str, cell: str) -> dict:
+    """The program's span names in a traced window of `cell` on the CPU
+    after its warm-up, and the window's steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    w = tiny_spec.cell(cell)
-    config = tiny_spec.config(w["config"])
-    traffic = tiny_spec.traffic(w["traffic"])
+    spec = Spec(Path(root), Path(bench))
+    w = spec.cell(cell)
+    config = spec.config(w["config"])
+    traffic = spec.traffic(w["traffic"])
     dev = torch.device("cpu")
-    entry = tiny_spec.entry(traffic["entry"]).Entry(config, traffic, 3, dev)
+    entry = spec.entry(traffic["entry"]).Entry(config, traffic, 3, dev)
     inputs = make_inputs(entry.step_shape, traffic, 3, dev)
     warm = int(traffic["warmup_steps"])
     with torch.inference_mode():
@@ -126,6 +132,16 @@ def test_traced_window_builds_nothing_once_warm(tiny_spec, cell):
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             window = run_loop(entry.step, inputs, traffic, warm, dev,
                               max_steps=int(traffic["trace_steps"]))
-    names = [e.name for e in prof.events() if e.name.startswith("airwave.")]
-    assert names.count("airwave.chain.step") == window.steps > 0
+    return {"steps": window.steps,
+            "names": [e.name for e in prof.events()
+                      if e.name.startswith("airwave.")]}
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_traced_window_builds_nothing_once_warm(tiny_spec, cell):
+    tier = tiny_spec.config(tiny_spec.cell(cell)["config"])["tier"]
+    got = at_tier(tier, f"{__name__}:traced_window_spans",
+                  str(tiny_spec.root), str(tiny_spec.bench_dir), cell)
+    names = got["names"]
+    assert names.count("airwave.chain.step") == got["steps"] > 0
     assert not [n for n in names if n.startswith("airwave.build.")]

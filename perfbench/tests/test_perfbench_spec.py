@@ -1,6 +1,7 @@
 """BENCHMARK.json against the benchmark's contract, and every name in it
-resolved to its file; a cell, configuration, traffic, entry and metric added
-as new files alone are found."""
+resolved to its file; each configuration against its own published shapes
+and its tier's contract; a cell, configuration, traffic, entry and metric
+added as new files alone are found and pass the same checks."""
 
 import json
 import re
@@ -16,6 +17,47 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
 SOURCES_E2E = {"host_clock", "device_trace"}
 SOURCES = SOURCES_E2E | {"program_span", "program_counter"}
+# The rel-RMS contract of each precision tier of the program (README.md);
+# "default" is a measurement mode with none, and no configuration's.
+CONTRACTS = {"highest": 1e-5, "high": 1e-4}
+# The source's own values that a configuration states as "published": the
+# shape keys, and the number of EQ filters.
+SHAPE_KEYS = ("sample_rate", "block_size", "hrir_channels", "hrir_taps",
+              "speakers", "ears", "eq_filters")
+# The first two configurations, held to their values by name.
+ACCEPTED = ("bake_hesuvi_stereo", "ring_hesuvi_stereo")
+
+
+def shape(config: dict) -> dict:
+    """A configuration's working values of the shape keys."""
+    return dict({k: config[k] for k in SHAPE_KEYS[:-1]},
+                eq_filters=len(config["eq"]["filters"]))
+
+
+def check_configuration(spec: Spec, name: str) -> None:
+    """What every configuration must have: its source, a tier with a
+    contract, a guarantees line, the lists of what was reduced and
+    assumed, each of its cells' limit within the tier's contract; and, but
+    for the two accepted ones, its published shapes, which its working
+    values keep but for the keys it lists as reduced."""
+    c = spec.config(name)
+    assert c["source"] == spec.configs[name]["source"], name
+    assert c["tier"] in CONTRACTS, f"{name}: tier {c['tier']!r}"
+    assert isinstance(c["guarantees"], str) and c["guarantees"].strip(), name
+    assert isinstance(c["reduced"], list) and isinstance(c["assumed"], list)
+    cells = [w for w in spec.cells.values() if w["config"] == name]
+    assert cells, f"{name}: no cell"
+    for w in cells:
+        limit = spec.traffic(w["traffic"])["check"]["limit_rel_rms"]
+        assert 0 < limit <= CONTRACTS[c["tier"]], (w["name"], limit)
+    if name in ACCEPTED:
+        return
+    published = c["published"]
+    assert set(published) == set(SHAPE_KEYS), name
+    working = shape(c)
+    for key in SHAPE_KEYS:
+        if key not in c["reduced"]:
+            assert working[key] == published[key], (name, key)
 
 
 @pytest.fixture(scope="module")
@@ -97,30 +139,40 @@ def test_every_name_resolves_to_its_file(spec):
         assert callable(spec.metric_reader(name).read)
 
 
-def test_configurations_keep_the_published_shapes(spec):
+@pytest.mark.parametrize("name", ACCEPTED)
+def test_configurations_keep_the_published_shapes(spec, name):
+    c = spec.config(name)
+    assert (c["sample_rate"], c["block_size"], c["hrir_channels"],
+            c["hrir_taps"], c["speakers"], c["ears"]) == (
+        48000, 512, 14, 4320, 2, 2)
+    assert c["tier"] == "highest" and c["reduced"] == []
+    assert len(c["eq"]["filters"]) == 10
+
+
+def test_every_configuration_keeps_its_source_and_contract(spec):
     for name in spec.configs:
-        c = spec.config(name)
-        assert (c["sample_rate"], c["block_size"], c["hrir_channels"],
-                c["hrir_taps"], c["speakers"], c["ears"]) == (
-            48000, 512, 14, 4320, 2, 2)
-        assert c["tier"] == "highest" and c["reduced"] == []
-        assert len(c["eq"]["filters"]) == 10
+        check_configuration(spec, name)
 
 
 def test_a_dummy_cell_added_as_files_is_found(tmp_path):
     """A later change adds files and entries only: copy the benchmark, add
-    a configuration, a traffic mix, an entry, a metric and a cell, and find
-    each by its name."""
+    a configuration (8 speakers at the "high" tier, with its published
+    shapes), a traffic mix, an entry, a metric and a cell, find each by its
+    name, and hold every configuration of the copy to the checks above."""
     bench = tmp_path / "perfbench"
     shutil.copytree(ROOT / "perfbench", bench,
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     data = json.loads((ROOT / "BENCHMARK.json").read_text())
     config = json.loads((bench / "configs" / "ring_hesuvi_stereo.json")
                         .read_text())
-    config["name"] = "dummy_config"
+    config.update(name="dummy_config", source="x", layout="7.1", speakers=8,
+                  tier="high", guarantees="bf16x3; within 1e-4 rel-RMS",
+                  assumed=config["assumed"] + ["the tier"])
+    config["published"] = shape(config)
     (bench / "configs" / "dummy_config.json").write_text(json.dumps(config))
     (bench / "traffic" / "dummy.mix.json").write_text(json.dumps(
-        {"entry": "dummy_entry", "lanes": 4}))
+        {"entry": "dummy_entry", "lanes": 4,
+         "check": {"limit_rel_rms": 2.5e-5}}))
     (bench / "entries" / "dummy_entry.py").write_text(
         "class Entry:\n    name = 'dummy'\n")
     (bench / "metrics" / "dummy.metric.py").write_text(
@@ -147,3 +199,42 @@ def test_a_dummy_cell_added_as_files_is_found(tmp_path):
     assert s.metric_reader("dummy.metric").read(None) == 42.0
     assert "dummy.metric" not in [m["name"] for m in
                                   s.cell_metrics("ring.eq.b8192", "per_layer")]
+    for name in s.configs:
+        check_configuration(s, name)
+
+
+@pytest.mark.parametrize("change, reduced", [
+    ({"speakers": 2}, []),                  # a shape moved, not listed
+    ({"tier": "default"}, ["speakers"]),    # a tier with no contract
+    ({"published": {"speakers": 8}}, []),   # published shapes left out
+])
+def test_the_configuration_checks_refuse(tmp_path, change, reduced):
+    """The dummy configuration, broken one way at a time, fails the checks;
+    a shape it lists as reduced may differ from its published one."""
+    bench = tmp_path / "perfbench"
+    shutil.copytree(ROOT / "perfbench", bench,
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    data = json.loads((ROOT / "BENCHMARK.json").read_text())
+    config = json.loads((bench / "configs" / "ring_hesuvi_stereo.json")
+                        .read_text())
+    config.update(name="dummy_config", source="x", speakers=8, tier="high",
+                  reduced=reduced)
+    config["published"] = shape(config)
+    config.update(change)
+    (bench / "configs" / "dummy_config.json").write_text(json.dumps(config))
+    data["configs"].append({"name": "dummy_config", "source": "x",
+                            "file": "perfbench/configs/dummy_config.json",
+                            "reduced": reduced, "why": "a dummy"})
+    data["workloads"].append({"name": "dummy.cell", "config": "dummy_config",
+                              "traffic": "rounds.eq.b8192", "chips": 1,
+                              "why": "a dummy"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(data))
+    s = Spec(tmp_path, bench)
+    with pytest.raises(AssertionError):
+        check_configuration(s, "dummy_config")
+    if reduced:
+        # Listed as reduced, the moved shape alone passes.
+        config.update(tier="high", speakers=2)
+        (bench / "configs" / "dummy_config.json").write_text(
+            json.dumps(config))
+        check_configuration(s, "dummy_config")
