@@ -1,15 +1,19 @@
 """On-card accuracy gate: the full chain against the float64 oracles.
 
 Port of scripts/validate_accuracy.py with its modes and its one JSON line.
-It runs the flagship conv+EQ chain (the bundled HRIR's shapes, S=2 and
-4320 taps, and a 10-filter cascade) on --device (the card by default; the
-CPU only when asked) and reports the worst lane's rel-RMS error against
-the port's float64 oracles (oracle/upols_oracle, oracle/eq_oracle): the
-BASELINE.md <=1e-5 contract, or the relaxed tier's 1e-4 with --contract.
+It runs the flagship conv+EQ chain (the bundled HRIR's shapes, 4320 taps,
+and a 10-filter cascade) on --device (the card by default; the CPU only
+when asked) for --speakers input channels (2 stereo, 6 for 5.1, 8 for 7.1:
+channel_maps.detect_layout), each speaker's ear pair taken from a seeded
+14-channel bank through the HeSuVi 14 map, and reports the worst lane's
+rel-RMS error against the port's float64 oracles (oracle/upols_oracle,
+oracle/eq_oracle): the BASELINE.md <=1e-5 contract, or the relaxed tier's
+1e-4 with --contract.
 The line carries device.precision_stamp(). Exit 1 when the worst lane
 misses --contract. Imports no jax: it runs on the card's machine.
 
     python -m airwave_tpu_torch.tools.validate_accuracy [--blocks-per-step 8]
+        [--speakers 8]
     python -m airwave_tpu_torch.tools.validate_accuracy --pool [--pool-groups 2]
     AIRWAVE_MATMUL_PRECISION=high python -m \\
         airwave_tpu_torch.tools.validate_accuracy --blocks-per-step 8 \\
@@ -26,7 +30,9 @@ import numpy as np
 
 from airwave_tpu_torch.device import DEFAULT_DEVICE
 
-T, S, SAMPLE_RATE = 512, 2, 48_000.0
+T, SAMPLE_RATE = 512, 48_000.0
+HRIR_CHANNELS = 14
+SPEAKERS = (2, 6, 8)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -38,6 +44,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--blocks", type=int, default=24)
     parser.add_argument("--blocks-per-step", type=int, default=1,
                         help="validate the M-block lookahead (paged) chain")
+    parser.add_argument("--speakers", type=int, default=2, choices=SPEAKERS,
+                        help="input channels, the layout by "
+                             "channel_maps.detect_layout: 2 stereo, 6 5.1, "
+                             "8 7.1 (every channel of the 14-channel bank)")
     parser.add_argument("--pool", action="store_true",
                         help="validate the serving pool's ring step "
                              "(shared cursor + masked writes + debt rolls "
@@ -75,19 +85,24 @@ def _hrir_seconds(parser, args):
     return parts
 
 
-def _profiles(G: int, hrir_seconds):
-    """The script's seeded banks and EQ definitions, one per group."""
+def _profiles(G: int, hrir_seconds, layout):
+    """The script's seeded banks and EQ definitions, one per group: each
+    bank a [14, taps] HeSuVi file's channels, resolved for `layout` by the
+    renderer's build_hrir_time_domain into [S, 2, taps]."""
+    from airwave_tpu_torch.graph.renderer import build_hrir_time_domain
     from airwave_tpu_torch.io.apo import (EqualizerDefinition, EqualizerFilter,
                                           FilterType)
+    from airwave_tpu_torch.io.wav import WAVData
     from airwave_tpu_torch.ops import biquad_design as bd
 
     hrirs, eq_defs, designs = [], [], []
     for g in range(G):
         n_g = 4320 if hrir_seconds is None else int(hrir_seconds[g] * 48_000)
-        h = (np.random.default_rng(g).standard_normal((S, 2, n_g))
-             * 0.05).astype(np.float32)
-        h[:, :, 0] += 0.8
-        hrirs.append(h)
+        bank = (np.random.default_rng(g).standard_normal((HRIR_CHANNELS, n_g))
+                * 0.05).astype(np.float32)
+        bank[:, 0] += 0.8
+        hrirs.append(build_hrir_time_domain(WAVData(SAMPLE_RATE, bank),
+                                            layout, SAMPLE_RATE))
         filt = tuple(
             EqualizerFilter(i + 1, i + 1, True,
                             (FilterType.PEAKING, FilterType.LOW_SHELF,
@@ -105,19 +120,21 @@ def _run_pool(args, dev, hrirs, eq_defs, x, N):
     """The serving path under a ragged pause schedule: lanes pause at
     different rounds, so the masked write and the debt rolls run (with
     --blocks-per-step M, the paged tier's page rolls)."""
+    from airwave_tpu_torch.assets.channel_maps import detect_layout
     from airwave_tpu_torch.graph.renderer import RendererState
     from airwave_tpu_torch.ops import upols
     from airwave_tpu_torch.runtime.stream_pool import PoolProfile, StreamPool
 
     B, G, M = args.batch, args.pool_groups, args.blocks_per_step
+    S = args.speakers
     step_t = M * T
 
     def renderer(h):
         return RendererState(
             conv_params=upols.make_conv_params(h, T, pad_to_pow2=False,
                                                lookahead=M, device=dev),
-            speakers=("FL", "FR"), sample_rate=SAMPLE_RATE, block_size=T,
-            lookahead=M)
+            speakers=detect_layout(S).channels, sample_rate=SAMPLE_RATE,
+            block_size=T, lookahead=M)
 
     if G > 1:
         pool = StreamPool(B, SAMPLE_RATE, block_size=T,
@@ -163,7 +180,7 @@ def _run_chain(args, dev, hrir, design, x, N):
                                                    make_chain_operands)
     from airwave_tpu_torch.ops import eq_block, upols
 
-    B, M = args.batch, args.blocks_per_step
+    B, M, S = args.batch, args.blocks_per_step, args.speakers
     preamp, coeffs = design
     eq_params = eq_block.make_eq_params(coeffs, preamp, T, device=dev)
     conv_params = upols.make_conv_params(hrir, T, pad_to_pow2=False,
@@ -201,7 +218,7 @@ def worst_lane_error(got, x, hrirs, designs, N: int, G: int) -> float:
     from airwave_tpu_torch.oracle.eq_oracle import EqCascadeOracle
     from airwave_tpu_torch.oracle.upols_oracle import UPOLSOracle
 
-    B = got.shape[0]
+    B, S = got.shape[0], x.shape[1]
     worst = 0.0
     for b in range(B):
         g = b // (B // G)  # lane's profile group (contiguous segments)
@@ -237,6 +254,7 @@ def validate(argv=None) -> dict:
 
     import torch
 
+    from airwave_tpu_torch.assets.channel_maps import detect_layout
     from airwave_tpu_torch.device import (apply_precision_policy,
                                           precision_stamp, resolve_device)
     from airwave_tpu_torch.ops import fftmm
@@ -244,8 +262,9 @@ def validate(argv=None) -> dict:
     dev = resolve_device(args.device)
     apply_precision_policy()
     G = args.pool_groups
-    hrirs, eq_defs, designs = _profiles(G, hrir_seconds)
-    B, N = args.batch, args.blocks
+    layout = detect_layout(args.speakers)
+    hrirs, eq_defs, designs = _profiles(G, hrir_seconds, layout)
+    B, N, S = args.batch, args.blocks, args.speakers
     # Multi-block paths consume whole M-block steps: round the block count
     # up instead of dying on an indivisible mix of --blocks and
     # --blocks-per-step.
@@ -271,6 +290,8 @@ def validate(argv=None) -> dict:
         "pool": bool(args.pool),
         "pool_groups": G,
         "blocks_per_step": args.blocks_per_step,
+        "speakers": S,
+        "layout": layout.name,
         "batch": B,
         "blocks": N,
         **precision_stamp(),
